@@ -1,0 +1,146 @@
+"""Request/transfer accounting -- the paper's evaluation metrics.
+
+* ``num_requests`` (#req): fragment *pages* requested (section 5.1 --
+  "the measurements for #req ... correspond ... to the number of pages
+  requested").
+* ``data_received`` (dataRecv): RDF triples contained in all fragment
+  pages received, data + metadata/control triples (section 5.1).
+* ``cache_hits`` (#hits): requests served by the HTTP cache (section 7.1).
+* ``launches_skipped``: requests served from the unified fragment store
+  (``core/fragments.py``) that would otherwise have reached an
+  accelerated selector -- kernel/window launches avoided by residency.
+* server/client work counters feed the throughput simulation (section 6).
+
+:func:`metrics_snapshot` is the ONE observability schema (brtpf/v1):
+counters plus the per-layer surface over the unified store -- the HTTP
+cache's section-7 hit rate, the selector-memo (data-layer) hit rate,
+the candidate-range memo hit rate and the skipped-launch count -- each
+layer accounted separately, so memo traffic can never masquerade as
+HTTP hits. ``BrTPFServer.metrics_snapshot()`` and the async front
+end's ``AsyncBrTPFServer.metrics_snapshot()`` emit THIS schema, the
+same one the JAX package serves at ``GET /metrics``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class Counters:
+    num_requests: int = 0
+    data_received: int = 0          # triples (data + metadata)
+    data_triples: int = 0           # data triples only
+    meta_triples: int = 0
+    cache_hits: int = 0
+    server_lookups: int = 0         # index lookups performed by the server
+    server_triples_scanned: int = 0
+    mappings_sent: int = 0          # solution mappings attached to requests
+    # kernel-selector launch accounting (selector_backend="kernel"):
+    kernel_launches: int = 0        # grouped bind-join kernel launches
+    kernel_cand_streamed: int = 0   # padded candidates streamed (HBM pass)
+    kernel_cand_rows: int = 0       # raw (pre-padding) candidate rows
+    kernel_cand_full_rows: int = 0  # raw full-range rows behind launches
+    kernel_pat_slots: int = 0       # padded pattern slots across groups
+    kernel_batched_requests: int = 0  # requests served by shared launches
+    launches_skipped: int = 0       # launches avoided by store residency
+    # Omega-restricted pruning / small-work fast path (docs/pruning.md):
+    cand_pruned_away: int = 0       # candidate rows NOT streamed thanks
+    #                                 to sub-range pruning (full - pruned)
+    fast_path_selects: int = 0      # requests served by the numpy block
+    #                                 evaluation instead of a launch
+    # Cross-pattern kernel fusion (docs/fusion.md). These classify a
+    # subset of kernel_launches (a fused launch IS a kernel launch);
+    # they are descriptive shape counters, not request dispositions.
+    fused_launches: int = 0         # launches serving >= 2 segments
+    fused_segments: int = 0         # segments across fused launches
+
+    def merge(self, other: "Counters") -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name,
+                    getattr(self, f.name) + getattr(other, f.name))
+
+    def snapshot(self) -> "Counters":
+        return dataclasses.replace(self)
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
+
+
+METRICS_VERSION = "brtpf/v1"
+
+
+def metrics_snapshot(server, batch=None) -> dict:
+    """Canonical per-server metrics envelope (brtpf/v1 schema).
+
+    Duck-typed on the server (``fragments``, ``store``, optional
+    ``cache``) so this module stays import-light. Each layer reports
+    its own hits/misses/hit_rate; ``launches_skipped`` is the unified
+    store's count of kernel/window launches avoided by residency.
+    ``batch`` optionally attaches an async front end's
+    :class:`~repro_torch.core.batching.BatchStats` under ``"batch"`` (the
+    flush/coalescing accounting the wire exposes at ``GET /metrics``).
+
+    Every value is a plain int/float/dict: the snapshot is JSON-safe by
+    construction, so the in-process dict and the ``GET /metrics`` body
+    are the same object modulo serialization.
+    """
+    f = server.fragments
+    # Range-memo accounting is reported as THIS server's delta (the
+    # store, and its counters, may be shared across servers -- e.g. the
+    # benchmarks' one dataset store); probe paths additionally never
+    # charge misses (store.candidate_range(memoize=False)), so the rate
+    # below describes real streaming reads only.
+    base_hits, base_misses = getattr(server, "_range_base", (0, 0))
+    r_hits = server.store.range_memo_hits - base_hits
+    r_misses = server.store.range_memo_misses - base_misses
+    out = {
+        "v": METRICS_VERSION,
+        "counters": dataclasses.asdict(server.counters),
+        "launches_skipped": f.launches_skipped,
+        "selector_memo": {
+            "hits": f.hits,
+            "misses": f.misses,
+            "hit_rate": f.hit_rate,
+            "entries": f.data_entries,
+        },
+        "range_memo": {
+            "hits": r_hits,
+            "misses": r_misses,
+            "hit_rate": r_hits / max(r_hits + r_misses, 1),
+        },
+        # mean segments per fused launch (1.0-equivalent batches never
+        # fuse, so 0.0 means "no fusion happened"): the headline shape
+        # metric of docs/fusion.md, derived here so every surface (wire
+        # and in-process) computes it identically.
+        "fused_segments_per_launch": (
+            server.counters.fused_segments
+            / max(server.counters.fused_launches, 1)),
+    }
+    if server.cache is not None:
+        out["http"] = {
+            "hits": server.cache.hits,
+            "misses": server.cache.misses,
+            "hit_rate": server.cache.hit_rate,
+            "entries": len(server.cache),
+        }
+    if batch is not None:
+        out["batch"] = {
+            "requests": batch.requests,
+            "rejected": batch.rejected,
+            "fast_path": batch.fast_path,
+            "flushes": batch.flushes,
+            "timer_flushes": batch.timer_flushes,
+            "full_flushes": batch.full_flushes,
+            "coalesced_requests": batch.coalesced_requests,
+            "max_batch_seen": batch.max_batch_seen,
+            "mean_batch": batch.mean_batch,
+            "shed": batch.shed,
+        }
+        # the JAX package's "resilience" schema; a lone async front end
+        # sheds (docs/resilience.md), the other mechanisms live in the
+        # serving edge, which is not ported yet
+        out["resilience"] = {"retries": 0, "hedges": 0, "hedge_wins": 0,
+                             "shed": batch.shed, "deadline_exceeded": 0,
+                             "giveups": 0}
+    return out

@@ -1,0 +1,171 @@
+"""Padding and dispatch around the kernels (the port of
+``repro/kernels/ops.py``).
+
+Each op pads exactly as the JAX package's op does, so the launch
+geometry (and with it every ``LaunchRecord``) is the same, then hands
+the padded structure-of-arrays inputs to the kernel's wrapper. Dispatch
+follows the tensor's device: a CUDA tensor gets the hand-written kernel,
+a CPU tensor its plain PyTorch version. ``compact_mask`` was plain
+``jnp`` in the reference and stays plain torch here.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .bindjoin import (DEFAULT_BM, DEFAULT_BT, DEFAULT_FUSED_BT,
+                       bindjoin_fused_cuda, bindjoin_grouped_cuda)
+from .tpf_match import tpf_match_cuda
+
+# The reference pads the single-pattern matcher's candidates to whole
+# (256, 128) TPU tiles; the CUDA kernel masks its own edge, but the op
+# keeps the same padding so padded outputs agree row for row.
+TPF_MATCH_TILE = 256 * 128
+
+
+def resolve_device(device: Optional[str]) -> torch.device:
+    """The device an entry point runs on: ``None`` means CUDA, and a
+    CUDA device that is not present raises (never a silent CPU run)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the kernels' plain "
+            "PyTorch versions")
+    return dev
+
+
+def _pad_to(x: torch.Tensor, mult: int, fill: int) -> torch.Tensor:
+    n = x.shape[0]
+    rem = (-n) % mult
+    if rem == 0 and n > 0:
+        return x.contiguous()
+    pad = max(rem, mult if n == 0 else rem)
+    return torch.cat([x, torch.full((pad,), fill, dtype=x.dtype,
+                                    device=x.device)])
+
+
+def padded_pattern_slots(m: int, bm: int = DEFAULT_BM) -> int:
+    """Per-group pattern-slot count after padding to the m-tile size --
+    the single source of truth for the launch geometry that
+    ``bindjoin_grouped`` uses and the selector charges."""
+    return max(m + (-m) % bm, bm)
+
+
+def _pad_slots(x: torch.Tensor, mp: int) -> torch.Tensor:
+    """[..., m] -> flat [prod(...) * mp], zero-filled slot padding."""
+    out = torch.zeros((*x.shape[:-1], mp), dtype=torch.int32,
+                      device=x.device)
+    out[..., :x.shape[-1]] = x
+    return out.reshape(-1)
+
+
+def bindjoin_grouped(cand: torch.Tensor, patterns: torch.Tensor,
+                     pat_valid: torch.Tensor, *, bt: int = DEFAULT_BT,
+                     bm: int = DEFAULT_BM
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Grouped bind-join filter: G pattern sets, one candidate pass.
+
+    Args:
+      cand: int32 [T, 3] candidate data triples (shared by all groups).
+      patterns: int32 [G, M, 3] per-group instantiated patterns
+        (component < 0 = wild).
+      pat_valid: int32 [G, M] (0 marks padding rows).
+
+    Returns:
+      keep:   bool  [T, G] -- triple joins with >= 1 of group g's patterns.
+      idx:    int32 [T, G] -- first matching within-group pattern index
+        (= padded M if none).
+      nmatch: int32 [T, G] -- matching-pattern count (cnt contribution).
+    """
+    t = cand.shape[0]
+    g, m = patterns.shape[0], patterns.shape[1]
+    cs, cp, co = (_pad_to(cand[:, i], bt, 0) for i in range(3))
+    mp = padded_pattern_slots(m, bm)
+    ps, pp, po = (_pad_slots(patterns[:, :, i], mp) for i in range(3))
+    pv = _pad_slots(pat_valid.to(torch.int32), mp)
+    keep, idx, nmatch = bindjoin_grouped_cuda(cs, cp, co, ps, pp, po, pv,
+                                              groups=g)
+    return keep[:t].bool(), idx[:t], nmatch[:t]
+
+
+def bindjoin_fused(cand: torch.Tensor, seg_of_tile: torch.Tensor,
+                   patterns: torch.Tensor, pat_valid: torch.Tensor, *,
+                   bt: int = DEFAULT_FUSED_BT, bm: int = DEFAULT_BM
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cross-pattern fused bind-join: S segments share one candidate pass.
+
+    Args:
+      cand: int32 [T, 3] concatenated candidate stream, T % bt == 0;
+        each bt-tile's rows belong to one segment.
+      seg_of_tile: int32 [T // bt] per-tile segment id (-1 = dead tile).
+      patterns: int32 [S, G, M, 3] per-segment per-group instantiated
+        patterns (component < 0 = wild).
+      pat_valid: int32 [S, G, M] (0 marks padding rows).
+
+    Returns:
+      keep:   bool  [T, G] -- row matches its own segment's group g.
+      idx:    int32 [T, G] -- first matching within-group pattern index
+        (= padded M if none).
+      nmatch: int32 [T, G] -- matching-pattern count (cnt contribution).
+    """
+    t = cand.shape[0]
+    s, g, m = patterns.shape[0], patterns.shape[1], patterns.shape[2]
+    if t % bt:
+        raise ValueError(f"fused stream of {t} rows is not whole "
+                         f"{bt}-row tiles")
+    mp = padded_pattern_slots(m, bm)
+    ps, pp, po = (_pad_slots(patterns[..., i], mp) for i in range(3))
+    pv = _pad_slots(pat_valid.to(torch.int32), mp)
+    cs, cp, co = (cand[:, i].contiguous() for i in range(3))
+    keep, idx, nmatch = bindjoin_fused_cuda(
+        seg_of_tile.to(torch.int32).contiguous(), cs, cp, co, ps, pp, po,
+        pv, segments=s, groups=g, bt=bt)
+    return keep.bool(), idx, nmatch
+
+
+def tpf_match(cand: torch.Tensor, pattern_vec: torch.Tensor) -> torch.Tensor:
+    """Single-pattern match mask over candidate triples.
+
+    Args:
+      cand: int32 [T, 3]; pattern_vec: int32 [8]
+        = [s, p, o, eq_sp, eq_so, eq_po, 0, 0], components < 0 wild.
+    Returns: bool [T].
+    """
+    t = cand.shape[0]
+    cs = _pad_to(cand[:, 0], TPF_MATCH_TILE, -1)
+    cp = _pad_to(cand[:, 1], TPF_MATCH_TILE, -2)  # s != p for padding rows
+    co = _pad_to(cand[:, 2], TPF_MATCH_TILE, -3)  # -> eq_* reject them
+    mask = tpf_match_cuda(cs, cp, co,
+                          pattern_vec.to(torch.int32).contiguous())
+    return mask[:t].bool()
+
+
+def compact_mask(mask: torch.Tensor, capacity: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Turn a bool mask ``[..., N]`` into (indices ``[..., capacity]``,
+    count ``[...]``): kept positions first, ascending, then -1 padding.
+
+    Works along the last axis, so a ``[G, N]`` mask compacts every
+    group's column in one call (the reference ``vmap``s over G). The
+    stable sort is on an integer key: 0 for kept rows, 1 for dropped.
+    """
+    count = mask.sum(dim=-1, dtype=torch.int32)
+    key = (~mask).to(torch.uint8)
+    order = torch.sort(key, dim=-1, stable=True).indices.to(torch.int32)
+    n = order.shape[-1]
+    if n < capacity:
+        order = torch.cat([order, torch.full(
+            (*order.shape[:-1], capacity - n), -1, dtype=torch.int32,
+            device=order.device)], dim=-1)
+    idx = order[..., :capacity]
+    valid = torch.arange(capacity, device=mask.device) < count[..., None]
+    return torch.where(valid, idx, torch.full_like(idx, -1)), count
+
+
+def pattern_vec_from(tp_tuple, eq_sp=0, eq_so=0, eq_po=0) -> np.ndarray:
+    """Host helper: build the int32[8] pattern vector for tpf_match."""
+    s, p, o = tp_tuple
+    return np.array([s, p, o, eq_sp, eq_so, eq_po, 0, 0], dtype=np.int32)

@@ -1,0 +1,94 @@
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package.
+
+* Every module of ``repro_torch`` imports in a fresh interpreter where
+  ``jax`` is blocked and a meta-path finder refuses ``repro`` and
+  ``repro.*`` (but not ``repro_torch``).
+* No source of the port, and not ``chip_smoke.py``, names ``jax`` or
+  ``repro`` in an import statement.
+* The entry points run on CUDA unless the caller asks for the CPU: on a
+  machine without a CUDA device they raise.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.tier1
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_BLOCKED_IMPORT = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "repro" or name.startswith("repro."):
+            raise ImportError(f"repro_torch must not import {name}")
+        return None
+
+sys.modules["jax"] = None
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" and sys.modules[m] is not None
+             or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=False)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20   # every module was imported
+
+
+def _forbidden_imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                yield f"{path.relative_to(ROOT)}:{node.lineno}: {name}"
+
+
+def test_no_source_imports_jax_or_the_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert all(f.is_file() for f in files)
+    bad = [hit for f in files for hit in _forbidden_imports(f)]
+    assert bad == []
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.core import BrTPFServer, ServerConfig, TripleStore
+    from repro_torch.core.kernel_selectors import KernelSelector
+    store = TripleStore(np.array([[1, 2, 3]], np.int32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KernelSelector(store)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BrTPFServer(store, ServerConfig(selector_backend="kernel"))
+    assert KernelSelector(store, device="cpu").device.type == "cpu"
+    # the numpy oracle needs no device
+    assert BrTPFServer(store, ServerConfig())._selector is None
