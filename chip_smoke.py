@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's brTPF serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's brTPF serving paths on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -15,7 +15,7 @@ printing its own lines:
 2. build: the CUDA kernels build from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) into ``build/repro_torch``;
 3. kernels: each hand-written kernel against its plain PyTorch version
-   on random inputs at the shapes the main path gives it, exact
+   on random inputs at the largest shape the main paths give it, exact
    equality, with the kernel's and the plain version's times and the
    card's bound for the same work;
 4. slice: a WatDiv-like store at 600x the default scale (about 9.25M
@@ -24,7 +24,19 @@ printing its own lines:
    and C families through the sequential brTPF client and through 4
    concurrent async clients on the kernel backend. Solutions and
    fragments must equal the numpy backend's, and each kernel must have
-   launched on this path.
+   launched on this path;
+5. sharded: the same store as 4 logical shards on the card (the sharded
+   backend), the same 8 queries through the sequential client on the
+   static placement, through 4 concurrent async clients (the sharded
+   fused step), and through the sequential client again after
+   ``repartition()`` from the heat log (the routed step); then
+   ``execute_full`` (the ungrouped bind-join over every shard's whole
+   partition) on each query's first two triple patterns. Everything
+   must equal the numpy backend or the host selector;
+6. path kernels: each kernel against its plain version again, at the
+   launch geometries each of phases 4 and 5 gave it most (the wrappers'
+   ``shapes`` tallies), with times and bounds beside that path's
+   launches.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -40,7 +52,10 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -55,6 +70,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # 1 add into the count, 1 min into the first index (wildcard and valid
 # flags are per slot, not per cell).
 OPS_PER_CELL = 7
+# The ungrouped bind-join keeps no count: 6 operations per cell.
+OPS_PER_CELL_UNGROUPED = 6
 # Work per row of the single-pattern matcher: 3 component compares and
 # 3 repeated-variable compares.
 OPS_PER_ROW = 6
@@ -63,6 +80,11 @@ SCALE_FACTOR = 600
 NUM_QUERIES_PER_FAMILY = 2
 REQUEST_BUDGET = 60
 ASYNC_CLIENTS = 4
+# Phase 5: logical shards of the sharded backend (its window is the
+# backend's default, federation.DEFAULT_SHARD_WINDOW).
+SHARDS = 4
+# execute_full's attached mappings: the interface's maxMpR.
+MAX_MPR = 30
 
 
 class SmokeFailure(RuntimeError):
@@ -80,19 +102,38 @@ def bound_ms(nbytes: float, ops: float):
 
 
 def time_ms(torch, fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, each after a
-    write of 256 MiB so that no input is left in the 50 MB L2 cache."""
+    """Mean device time of ``fn`` over ``iters`` calls. Before each call
+    the card writes 256 MiB (so no input is left in the 50 MB L2 cache)
+    as many times as it takes to outlast the host's issuing of the call
+    (at most about 20 ms), so that a small launch is timed on the device
+    and not by the Python and launch overhead the host spends on it."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
     fn()
     torch.cuda.synchronize()
+    start = event()
+    flush.zero_()
+    end = event()
+    torch.cuda.synchronize()
+    flush_ms = max(start.elapsed_time(end), 1e-3)
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    writes = min(max(1, int(2 * host_ms / flush_ms) + 1),
+                 max(1, int(20 / flush_ms)))
     total = 0.0
     for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        for _ in range(writes):
+            flush.zero_()
+        start = event()
         fn()
-        end.record()
+        end = event()
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / iters
@@ -104,10 +145,15 @@ def max_abs_err(torch, got, want) -> int:
     return max(errs)
 
 
-def check_kernels(torch, bj, tm):
-    """Phase 3: each kernel against its plain version at main-path
-    shapes. Returns per-kernel measurements."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def kernel_case(torch, bj, tm, gen, name, shape, shards=0):
+    """Random inputs for kernel ``name`` at launch geometry ``shape``
+    (the key of the wrapper's ``shapes`` tally: ``(T,)``, ``(T, M)``,
+    ``(T, G, Mp)`` or ``(T, S, G, Mp)``). Returns the wrapper call, the
+    plain version's call, the bytes and operations of the bound, and
+    facts about the inputs. A fused case with ``shards`` lays its
+    segments out as the sharded step does (each shard's S segments of
+    T / (shards * S) rows, every tile live); without, its tiles get
+    random segments or -1 (dead), as a kernel-backend stream has."""
     dev = "cuda"
 
     def randint(lo, hi, n):
@@ -123,73 +169,132 @@ def check_kernels(torch, bj, tm):
         out.append((randint(0, 10, n) < 8).to(torch.int32))
         return out
 
-    results = {}
-
-    # tpf_match at the _bucket of the ~2.4M-row `?u likes ?p` range.
-    t = 4_194_304
-    cand = [randint(0, 4, t) for _ in range(3)]
-    pv = torch.tensor([-1, 2, -1, 0, 1, 0, 0, 0], dtype=torch.int32,
-                      device=dev)
-    got = [tm.tpf_match_cuda(*cand, pv)]
-    want = [tm.tpf_match_plain(*cand, pv)]
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, got, want)
-    ms = time_ms(torch, lambda: tm.tpf_match_cuda(*cand, pv), 20)
-    plain = time_ms(torch, lambda: tm.tpf_match_plain(*cand, pv), 5)
-    b, by = bound_ms(16 * t + 32, OPS_PER_ROW * t)
-    results["tpf_match"] = dict(shape=dict(T=t), max_abs_err=err, ms=ms,
-                                plain_ms=plain, bound_ms=b, bound_by=by,
-                                matches=int(want[0].sum()))
-
-    # bindjoin_grouped at the same T, G = 8 groups of Mp = 128 slots.
-    g, mp = 8, 128
+    t = shape[0]
+    if name == "tpf_match":
+        cand = [randint(0, 4, t) for _ in range(3)]
+        pv = torch.tensor([-1, 2, -1, 0, 1, 0, 0, 0], dtype=torch.int32,
+                          device=dev)
+        return (lambda: [tm.tpf_match_cuda(*cand, pv)],
+                lambda: [tm.tpf_match_plain(*cand, pv)],
+                16 * t + 32, OPS_PER_ROW * t, {})
     cand = [randint(0, 64, t) for _ in range(3)]
-    pats = slots(g * mp, 64)
-    got = bj.bindjoin_grouped_cuda(*cand, *pats, groups=g)
-    want = bj.bindjoin_grouped_plain(*cand, *pats, groups=g)
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, got, want)
-    ms = time_ms(torch, lambda: bj.bindjoin_grouped_cuda(
-        *cand, *pats, groups=g), 10)
-    plain = time_ms(torch, lambda: bj.bindjoin_grouped_plain(
-        *cand, *pats, groups=g), 2)
-    b, by = bound_ms(12 * t + 16 * g * mp + 12 * t * g,
-                     OPS_PER_CELL * t * g * mp)
-    results["bindjoin_grouped"] = dict(
-        shape=dict(T=t, G=g, Mp=mp), max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=b, bound_by=by,
-        kept=int(want[0].sum()))
-
-    # bindjoin_fused at the MAX_FUSED_* ceilings: 131072 rows, 16
-    # segments x 2 groups x 1024 slots = 32768 slots.
-    t, s, g, mp = 131072, 16, 2, 1024
-    cand = [randint(0, 64, t) for _ in range(3)]
-    seg = randint(-1, s, t // 256)
+    if name == "bindjoin":
+        m = shape[1]
+        pats = slots(m, 64)
+        pats[3][MAX_MPR:] = 0          # maxMpR valid slots, then padding
+        return (lambda: bj.bindjoin_cuda(*cand, *pats),
+                lambda: bj.bindjoin_plain(*cand, *pats),
+                20 * t + 16 * m, OPS_PER_CELL_UNGROUPED * t * m, {})
+    if name == "bindjoin_grouped":
+        g, mp = shape[1:]
+        pats = slots(g * mp, 64)
+        return (lambda: bj.bindjoin_grouped_cuda(*cand, *pats, groups=g),
+                lambda: bj.bindjoin_grouped_plain(*cand, *pats, groups=g),
+                12 * t + 16 * g * mp + 12 * t * g,
+                OPS_PER_CELL * t * g * mp, {})
+    s, g, mp = shape[1:]
+    tiles = t // 256
+    if shards:
+        seg = torch.arange(s, dtype=torch.int32, device=dev) \
+            .repeat_interleave(tiles // (shards * s)).repeat(shards)
+    else:
+        seg = randint(-1, s, tiles)
     pats = slots(s * g * mp, 64)
-    got = bj.bindjoin_fused_cuda(seg, *cand, *pats, segments=s, groups=g)
-    want = bj.bindjoin_fused_plain(seg, *cand, *pats, segments=s, groups=g)
+    live_rows = int((seg >= 0).sum()) * 256
+    return (lambda: bj.bindjoin_fused_cuda(seg, *cand, *pats, segments=s,
+                                           groups=g),
+            lambda: bj.bindjoin_fused_plain(seg, *cand, *pats, segments=s,
+                                            groups=g),
+            12 * t + 4 * tiles + 16 * s * g * mp + 12 * t * g,
+            OPS_PER_CELL * live_rows * g * mp, dict(live_rows=live_rows))
+
+
+def measure(torch, bj, tm, gen, name, shape, shards=0):
+    """One kernel case: exact agreement with the plain version, the
+    kernel's and the plain version's device ms, and the bound."""
+    fn, plain_fn, nbytes, ops, facts = kernel_case(
+        torch, bj, tm, gen, name, shape, shards)
+    got, want = fn(), plain_fn()
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
-    ms = time_ms(torch, lambda: bj.bindjoin_fused_cuda(
-        seg, *cand, *pats, segments=s, groups=g), 20)
-    plain = time_ms(torch, lambda: bj.bindjoin_fused_plain(
-        seg, *cand, *pats, segments=s, groups=g), 2)
-    live_rows = int((seg >= 0).sum()) * 256
-    b, by = bound_ms(12 * t + 4 * (t // 256) + 16 * s * g * mp + 12 * t * g,
-                     OPS_PER_CELL * live_rows * g * mp)
-    results["bindjoin_fused"] = dict(
-        shape=dict(T=t, S=s, G=g, Mp=mp, live_rows=live_rows),
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        kept=int(want[0].sum()))
+    ms = time_ms(torch, fn, 20)
+    plain = time_ms(torch, plain_fn, 3)
+    b, by = bound_ms(nbytes, ops)
+    r = dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain,
+             bound_ms=b, bound_by=by, kept=int(want[0].sum()), **facts)
+    log(f"kernel {name}: shape {list(shape)}"
+        + (f" ({shards} shards)" if shards else "")
+        + f" max_abs_err={err} ms={ms:.4f} plain_ms={plain:.4f} "
+        f"bound_ms={b:.4f} ({by}) "
+        "library_ms=null (no single PyTorch call computes it)")
+    if err != 0:
+        raise SmokeFailure(f"{name} disagrees with its plain version at "
+                           f"{list(shape)}")
+    return r
 
-    for name, r in results.items():
-        log(f"kernel {name}: {r['shape']} max_abs_err={r['max_abs_err']} "
-            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-            "library_ms=null (no single PyTorch call computes it)")
-        if r["max_abs_err"] != 0:
-            raise SmokeFailure(f"{name} disagrees with its plain version")
-    return results
+
+def check_kernels(torch, bj, tm, t_full: int):
+    """Phase 3: each kernel against its plain version at the largest
+    shape a main path gives it (``t_full``: the sharded store's rows,
+    shards x shard_n, which execute_full streams at once)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return {
+        # tpf_match at the _bucket of the ~2.4M-row `?u likes ?p` range
+        "tpf_match": measure(torch, bj, tm, gen, "tpf_match", (4_194_304,)),
+        # bindjoin_grouped at the same T, G = 8 groups of Mp = 128 slots
+        "bindjoin_grouped": measure(torch, bj, tm, gen, "bindjoin_grouped",
+                                    (4_194_304, 8, 128)),
+        # bindjoin_fused at the MAX_FUSED_* ceilings: 131072 rows, 16
+        # segments x 2 groups x 1024 slots = 32768 slots
+        "bindjoin_fused": measure(torch, bj, tm, gen, "bindjoin_fused",
+                                  (131_072, 16, 2, 1024)),
+        # bindjoin (ungrouped) at execute_full's shape: every shard's
+        # whole partition, padded to 1024 rows, against maxMpR = 30
+        # slots padded to M = 128
+        "bindjoin": measure(torch, bj, tm, gen, "bindjoin",
+                            (-(-t_full // 1024) * 1024, 128)),
+    }
+
+
+def check_path_geometries(torch, bj, tm, shapes_per_path):
+    """Phase 6: each kernel against its plain version at the launch
+    geometries each main path gave it (from the wrappers' ``shapes``
+    tallies), most launched first, until they cover 90% of that path's
+    launches of the kernel (at most 3). A fused geometry of the sharded
+    path is laid out per shard as its step lays it out. Returns, per
+    kernel, per path: launches, share covered, the launches x (ms -
+    bound) excess of the covered geometries, and each geometry's
+    measurement."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    seen = {}
+    out = {}
+    for path, per_kernel in shapes_per_path.items():
+        shards = SHARDS if path == "sharded backend" else 0
+        for name, tally in per_kernel.items():
+            total = sum(tally.values())
+            if not total:
+                continue
+            geoms, covered, excess = [], 0, 0.0
+            for shape, n in tally.most_common(3):
+                key = (name, shape, shards if name == "bindjoin_fused"
+                       else 0)
+                if key not in seen:
+                    seen[key] = measure(torch, bj, tm, gen, name, shape,
+                                        key[2])
+                r = seen[key]
+                geoms.append(dict(r, launches=n))
+                covered += n
+                excess += n * (r["ms"] - r["bound_ms"])
+                if covered >= 0.9 * total:
+                    break
+            out.setdefault(name, {})[path] = dict(
+                launches=total, covered=covered / total,
+                excess_ms=excess, geometries=geoms)
+            log(f"path {path}: {name} {total} launches, "
+                f"{100 * covered / total:.1f}% at the {len(geoms)} "
+                f"geometries timed, launches x (ms - bound) "
+                f"{excess:.1f} ms")
+    return out
 
 
 def pick_queries(watdiv, data):
@@ -228,9 +333,8 @@ def same_fragment(a, b) -> bool:
             and a.has_next == b.has_next)
 
 
-def run_slice(torch, core, watdiv, counts, reset_counts):
-    """Phase 4: the serving slice at real scale. Returns details."""
-    details = {}
+def generate_data(watdiv):
+    """The slice's store: WatDiv-like at SCALE_FACTOR x the default."""
     t0 = time.perf_counter()
     base = watdiv.WatDivScale()
     scale = watdiv.WatDivScale(**{
@@ -238,14 +342,70 @@ def run_slice(torch, core, watdiv, counts, reset_counts):
         for f in ("users", "products", "reviews", "retailers", "genres",
                   "cities", "tags")})
     data = watdiv.generate(scale, seed=0)
-    details["generate_s"] = time.perf_counter() - t0
-    details["triples"] = len(data.store)
-    details["terms"] = len(data.dictionary)
-    log(f"slice data: {details['triples']} triples, {details['terms']} "
-        f"terms, generated in {details['generate_s']:.1f}s")
-    queries = pick_queries(watdiv, data)
-    log("slice queries: " + " ".join(n for n, _ in queries))
+    generate_s = time.perf_counter() - t0
+    log(f"slice data: {len(data.store)} triples, {len(data.dictionary)} "
+        f"terms, generated in {generate_s:.1f}s")
+    return data, generate_s
 
+
+def same_solutions(a, b) -> bool:
+    return (a.solutions.shape == b.solutions.shape
+            and (a.solutions == b.solutions).all()
+            and (a.num_requests, a.data_received, a.timed_out)
+            == (b.num_requests, b.data_received, b.timed_out))
+
+
+def drive_async(torch, core, server, queries):
+    """4 concurrent async clients over the batching front end: every
+    heterogeneous window goes through a fused step. Returns the
+    recording front end, the per-client results and the seconds."""
+    front = RecordingFront(core.AsyncBrTPFServer(server))
+    work = [list(range(len(queries)))[i::ASYNC_CLIENTS]
+            for i in range(ASYNC_CLIENTS)]
+
+    async def drive():
+        try:
+            clients = [core.AsyncBrTPFClient(front,
+                                             request_budget=REQUEST_BUDGET)
+                       for _ in work]
+            return await asyncio.gather(*[
+                c.run_workload([queries[i] for i in w])
+                for c, w in zip(clients, work, strict=True)])
+        finally:
+            await front.front.aclose()
+
+    t0 = time.perf_counter()
+    ares = asyncio.run(drive())
+    torch.cuda.synchronize()
+    return front, list(zip(work, ares, strict=True)), \
+        time.perf_counter() - t0
+
+
+def check_async(core, store, front, results, queries, nres, label):
+    """Every async fragment against the numpy backend's, byte for byte,
+    and every finished query's solutions. Returns the seconds taken."""
+    oracle = core.BrTPFServer(store, core.ServerConfig())
+    t0 = time.perf_counter()
+    for req, frag in front.log:
+        if not same_fragment(frag, oracle.handle(req)):
+            raise SmokeFailure(f"{label} async fragment for {req.pattern} "
+                               f"page {req.page} differs from the numpy "
+                               "backend")
+    for w, res in results:
+        for i, r in zip(w, res, strict=True):
+            n = nres[i]
+            if not r.timed_out and not n.timed_out and not (
+                    r.solutions.shape == n.solutions.shape
+                    and (r.solutions == n.solutions).all()):
+                raise SmokeFailure(f"{label} async query {queries[i][0]}: "
+                                   "solutions differ")
+    return time.perf_counter() - t0
+
+
+def run_slice(torch, core, data, queries, counts, reset_counts):
+    """Phase 4: the serving slice at real scale on the kernel backend.
+    Returns details and the numpy backend's results."""
+    details = {}
     kcfg = core.ServerConfig(selector_backend="kernel", fast_path_rows=0)
     kserver = core.BrTPFServer(data.store, kcfg)
     nserver = core.BrTPFServer(data.store, core.ServerConfig())
@@ -257,17 +417,14 @@ def run_slice(torch, core, watdiv, counts, reset_counts):
             .execute(b) for _, b in queries]
     torch.cuda.synchronize()
     details["sync_kernel_s"] = time.perf_counter() - t0
-    sync_counts = counts()
+    sync_counts = counts("kernel backend")
     t0 = time.perf_counter()
     nres = [core.BrTPFClient(nserver, request_budget=REQUEST_BUDGET)
             .execute(b) for _, b in queries]
     details["sync_numpy_s"] = time.perf_counter() - t0
     per_query = []
     for (name, _), k, n in zip(queries, kres, nres, strict=True):
-        if not (k.solutions.shape == n.solutions.shape
-                and (k.solutions == n.solutions).all()
-                and (k.num_requests, k.data_received, k.timed_out)
-                == (n.num_requests, n.data_received, n.timed_out)):
+        if not same_solutions(k, n):
             raise SmokeFailure(f"query {name}: kernel backend differs "
                                "from the numpy backend")
         per_query.append(dict(query=name, solutions=int(k.solutions.shape[0]),
@@ -285,43 +442,12 @@ def run_slice(torch, core, watdiv, counts, reset_counts):
     # Concurrent async clients over the batching front end: every
     # heterogeneous window goes through the fused kernel.
     aserver = core.BrTPFServer(data.store, kcfg)
-    front = RecordingFront(core.AsyncBrTPFServer(aserver))
-    work = [list(range(len(queries)))[i::ASYNC_CLIENTS]
-            for i in range(ASYNC_CLIENTS)]
-
-    async def drive():
-        try:
-            clients = [core.AsyncBrTPFClient(front,
-                                             request_budget=REQUEST_BUDGET)
-                       for _ in work]
-            return await asyncio.gather(*[
-                c.run_workload([queries[i] for i in w])
-                for c, w in zip(clients, work, strict=True)])
-        finally:
-            await front.front.aclose()
-
-    before = counts()
-    t0 = time.perf_counter()
-    ares = asyncio.run(drive())
-    torch.cuda.synchronize()
-    details["async_kernel_s"] = time.perf_counter() - t0
-    after = counts()
-    async_counts = {k: after[k] - before[k] for k in after}
-    oracle = core.BrTPFServer(data.store, core.ServerConfig())
-    t0 = time.perf_counter()
-    for req, frag in front.log:
-        if not same_fragment(frag, oracle.handle(req)):
-            raise SmokeFailure(f"async fragment for {req.pattern} page "
-                               f"{req.page} differs from the numpy backend")
-    details["async_numpy_check_s"] = time.perf_counter() - t0
-    for w, results in zip(work, ares, strict=True):
-        for i, r in zip(w, results, strict=True):
-            n = nres[i]
-            if not r.timed_out and not n.timed_out and not (
-                    r.solutions.shape == n.solutions.shape
-                    and (r.solutions == n.solutions).all()):
-                raise SmokeFailure(f"async query {queries[i][0]}: "
-                                   "solutions differ")
+    reset_counts()
+    front, ares, details["async_kernel_s"] = drive_async(
+        torch, core, aserver, queries)
+    async_counts = counts("kernel backend")
+    details["async_numpy_check_s"] = check_async(
+        core, data.store, front, ares, queries, nres, "kernel")
     stats = front.front.stats
     details["async"] = dict(requests=len(front.log),
                             counters=dataclasses.asdict(aserver.counters),
@@ -335,28 +461,184 @@ def run_slice(torch, core, watdiv, counts, reset_counts):
         f"backend's ({details['async_numpy_check_s']:.1f}s); launches "
         f"{async_counts}")
     details["requests"] = kserver.counters.num_requests + len(front.log)
-    details["launches"] = counts()
+    details["launches"] = {k: sync_counts[k] + async_counts[k]
+                           for k in sync_counts}
 
     # Not part of the counted main path: the sequential client once
     # more, on a fresh kernel server, under the profiler.
     details["profile"] = profile_sync(torch, core, data.store, kcfg, queries)
-    p = details["profile"]
-    log(f"slice profile: sync kernel run {p['wall_s']:.2f}s wall under the "
-        f"profiler, device busy {p['device_busy_s']:.3f}s "
-        f"({100 * p['busy_share']:.1f}%); top device time (ms): "
+    log_profile("slice profile: sync kernel run", details["profile"])
+    return details, nres
+
+
+def log_profile(label, p):
+    log(f"{label} {p['wall_s']:.2f}s wall under the profiler, device busy "
+        f"{p['device_busy_s']:.3f}s ({100 * p['busy_share']:.1f}%); top "
+        "device time (ms): "
         + ", ".join(f"{k} {ms:.1f}" for k, ms in p["top"][:5]))
+
+
+def bgp_mappings(core, tp, triples, num_vars, limit):
+    """The first ``limit`` distinct solution mappings of ``tp`` over its
+    matching ``triples`` (the Omega a client would attach next)."""
+    rows = []
+    for t in triples:
+        mu = core.mapping_from_triple(tp, t, num_vars)
+        if mu is not None:
+            rows.append(mu)
+            if len(rows) == limit:
+                break
+    if not rows:
+        return None
+    return core.dedup_mappings(np.stack(rows))[:limit]
+
+
+def check_execute_full(core, store, fed, queries):
+    """``execute_full`` on each query's first triple pattern with no
+    mappings, and on its second with the first's first MAX_MPR
+    solution mappings; rows, sorted, against the host selector's. Each
+    shard's page capacity is the power of two above the host's row
+    count (capped at the shard size), so no page can be truncated."""
+    def sorted_rows(x):
+        return x[np.lexsort((x[:, 2], x[:, 1], x[:, 0]))]
+
+    out = []
+    for name, bgp in queries:
+        tps = list(bgp.patterns[:2])
+        first, _ = core.brtpf_select_with_cnt(store, tps[0], None)
+        wants = [first]
+        omegas = [None]
+        if len(tps) == 2:
+            omegas.append(bgp_mappings(core, tps[0], first, bgp.num_vars,
+                                       MAX_MPR))
+            wants.append(core.brtpf_select_with_cnt(store, tps[1],
+                                                    omegas[1])[0])
+        for tp, omega, want in zip(tps, omegas, wants):
+            cap = 1
+            while cap < max(len(want), 1):
+                cap *= 2
+            cap = min(cap, fed.shard_n)
+            got = fed.execute_full(tp, omega, MAX_MPR, cap)
+            if len(got) != len(want) or not np.array_equal(
+                    sorted_rows(got), sorted_rows(want)):
+                raise SmokeFailure(f"execute_full {name} {tp}: "
+                                   f"{len(got)} rows, host {len(want)}")
+            out.append(dict(query=name, rows=int(len(want)), capacity=cap,
+                            mappings=0 if omega is None
+                            else int(omega.shape[0])))
+    return out
+
+
+def run_sharded(torch, core, data, queries, nres, counts, reset_counts):
+    """Phase 5: the sharded backend, SHARDS logical shards on the card,
+    on the static placement (sync and async) and after a heat
+    repartition (the routed step), then execute_full."""
+    details = {}
+    scfg = core.ServerConfig(selector_backend="sharded", shards=SHARDS,
+                             fast_path_rows=0, placement_policy="heat")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server = core.BrTPFServer(data.store, scfg)
+    torch.cuda.synchronize()
+    fed = server.federated
+    details["build_s"] = time.perf_counter() - t0
+    details["device_bytes"] = fed.nbytes
+    details["shard_n"] = fed.shard_n
+    log(f"sharded store: {SHARDS} logical shards x {fed.shard_n} rows, 3 "
+        f"orders on the device, {fed.nbytes / 1e9:.3f} GB, built in "
+        f"{details['build_s']:.1f}s; window "
+        f"{server._selector.window}")
+
+    def sequential(label, srv):
+        sel = srv._selector
+        n0 = len(sel.launches)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = [core.BrTPFClient(srv, request_budget=REQUEST_BUDGET)
+               .execute(b) for _, b in queries]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = counts("sharded backend")
+        for (name, _), r, n in zip(queries, res, nres, strict=True):
+            if not same_solutions(r, n):
+                raise SmokeFailure(f"sharded {label} query {name}: differs "
+                                   "from the numpy backend")
+        out = dict(seconds=secs, requests=srv.counters.num_requests,
+                   launch_records=len(sel.launches) - n0, launches=launched,
+                   shards=srv.metrics_snapshot()["shards"])
+        log(f"sharded {label}: {out['requests']} requests in {secs:.1f}s, "
+            f"{out['launch_records']} LaunchRecords, solutions and request "
+            f"counts equal the numpy backend's; launches {launched}; "
+            f"shard imbalance {out['shards']['imbalance']:.2f}")
+        return out
+
+    details["static"] = sequential("static", server)
+
+    aserver = core.BrTPFServer(data.store,
+                               scfg.replace(placement_policy="static"))
+    n0 = len(aserver._selector.launches)
+    reset_counts()
+    front, ares, secs = drive_async(torch, core, aserver, queries)
+    launched = counts("sharded backend")
+    check_s = check_async(core, data.store, front, ares, queries, nres,
+                          "sharded")
+    stats = front.front.stats
+    details["async"] = dict(
+        seconds=secs, requests=len(front.log),
+        launch_records=len(aserver._selector.launches) - n0,
+        launches=launched, flushes=stats.flushes,
+        fused_launches=aserver.counters.fused_launches, check_s=check_s)
+    log(f"sharded async: {ASYNC_CLIENTS} clients, {len(front.log)} requests "
+        f"in {secs:.1f}s, {stats.flushes} flushes, "
+        f"{aserver.counters.fused_launches} fused launches, "
+        f"{details['async']['launch_records']} LaunchRecords, every fragment "
+        f"equals the numpy backend's ({check_s:.1f}s); launches {launched}")
+
+    t0 = time.perf_counter()
+    server.repartition()
+    server.reset_counters()
+    torch.cuda.synchronize()
+    placement = server.federated.placement
+    if placement is None:
+        raise SmokeFailure("repartition left no placement")
+    details["repartition_s"] = time.perf_counter() - t0
+    details["replicas"] = sum(len(v) for v in placement.replicas.values())
+    log(f"sharded repartition: {details['repartition_s']:.1f}s from "
+        f"{len(server._heat)} heat records, {details['replicas']} replica "
+        f"ranges, shard_n {server.federated.shard_n}")
+    details["routed"] = sequential("routed", server)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    details["execute_full"] = check_execute_full(core, data.store, fed,
+                                                 queries)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    details["execute_full_launches"] = counts("execute_full")
+    log(f"sharded execute_full: {len(details['execute_full'])} requests in "
+        f"{full_s:.1f}s, rows equal the host selector's, none truncated; "
+        f"launches {details['execute_full_launches']}")
+
+    # Not part of the counted main path: the static sequential run once
+    # more, on a fresh sharded server, under the profiler.
+    details["profile"] = profile_sync(
+        torch, core, data.store, scfg.replace(placement_policy="static"),
+        queries)
+    log_profile("sharded profile: sync static run", details["profile"])
     return details
 
 
-def profile_sync(torch, core, store, kcfg, queries):
+def profile_sync(torch, core, store, cfg, queries):
     """Device busy share of the sequential client's run: the summed
     span of every device event (kernels, copies, fills) recorded by
-    ``torch.profiler`` over the host wall time, plus the top device
-    events by total time."""
+    ``torch.profiler`` (device activity only) over the host wall time,
+    plus the top device events by total time. The raw trace events are
+    read directly: building the profiler's event tree for the sharded
+    run's million events would take minutes."""
     from torch.profiler import ProfilerActivity, profile
-    server = core.BrTPFServer(store, kcfg)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    server = core.BrTPFServer(store, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _, bgp in queries:
             core.BrTPFClient(server, request_budget=REQUEST_BUDGET) \
@@ -364,17 +646,25 @@ def profile_sync(torch, core, store, kcfg, queries):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            name = ev.name.replace("(anonymous namespace)::", "")
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            name = ev.name().replace("(anonymous namespace)::", "")
             name = re.split(r"[(<]", name)[0].strip()[-48:]
             by_name[name] = (by_name.get(name, 0.0)
-                             + ev.time_range.elapsed_us())
+                             + ev.duration_ns() / 1e3)
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
                 requests=server.counters.num_requests,
                 top=[(name, us / 1e3) for name, us in top])
+
+
+# Which kernels each counted path must launch.
+PATH_KERNELS = {
+    "kernel backend": ("tpf_match", "bindjoin_grouped", "bindjoin_fused"),
+    "sharded backend": ("tpf_match", "bindjoin_grouped", "bindjoin_fused"),
+    "execute_full": ("tpf_match", "bindjoin"),
+}
 
 
 def main() -> int:
@@ -411,42 +701,111 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    kernels = check_kernels(torch, bj, tm)
+    # The store is generated first: phase 3 times the ungrouped kernel
+    # at the sharded store's full-stream shape.
+    ends = {"build": time.perf_counter() - t_start}
+    data, generate_s = generate_data(watdiv)
+    ends["data"] = time.perf_counter() - t_start
+    kernels = check_kernels(torch, bj, tm,
+                            SHARDS * -(-len(data.store) // SHARDS))
+    ends["kernels"] = time.perf_counter() - t_start
 
     wrappers = {"tpf_match": tm.tpf_match_cuda,
                 "bindjoin_grouped": bj.bindjoin_grouped_cuda,
-                "bindjoin_fused": bj.bindjoin_fused_cuda}
+                "bindjoin_fused": bj.bindjoin_fused_cuda,
+                "bindjoin": bj.bindjoin_cuda}
+
+    # launch geometries per main path, from the wrappers' tallies
+    shapes_per_path = {p: {n: Counter() for n in wrappers}
+                       for p in PATH_KERNELS}
 
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
+            fn.shapes.clear()
 
-    def counts():
+    def counts(path):
+        for name, fn in wrappers.items():
+            shapes_per_path[path][name].update(fn.shapes)
         return {name: fn.launches for name, fn in wrappers.items()}
 
-    details = run_slice(torch, core, watdiv, counts, reset_counts)
-    launches = details["launches"]
-    log(f"kernels launched on the main path: {launches} over "
-        f"{details['requests']} requests")
-    if not all(launches.values()):
-        raise SmokeFailure(f"a kernel never launched on the main path: "
-                           f"{launches}")
+    queries = pick_queries(watdiv, data)
+    log("slice queries: " + " ".join(n for n, _ in queries))
+    details, nres = run_slice(torch, core, data, queries, counts,
+                              reset_counts)
+    ends["slice"] = time.perf_counter() - t_start
+    details.update(triples=len(data.store), terms=len(data.dictionary),
+                   generate_s=generate_s)
+    sharded = run_sharded(torch, core, data, queries, nres, counts,
+                          reset_counts)
+    ends["sharded"] = time.perf_counter() - t_start
+    details["phase_end_s"] = ends
+    details["sharded"] = sharded
+    per_path = {
+        "kernel backend": details["launches"],
+        "sharded backend": {
+            k: sum(sharded[run]["launches"][k]
+                   for run in ("static", "async", "routed"))
+            for k in wrappers},
+        "execute_full": sharded["execute_full_launches"]}
+    for path, names in PATH_KERNELS.items():
+        missing = [n for n in names if not per_path[path][n]]
+        if missing:
+            raise SmokeFailure(f"{missing} never launched on the {path} "
+                               f"path: {per_path[path]}")
+    launches = {k: sum(c[k] for c in per_path.values()) for k in wrappers}
+    details["launches_per_path"] = per_path
+    log(f"kernels launched on the main paths: {per_path}")
+
+    # Not part of the counted main paths: each kernel at the geometries
+    # the paths gave it.
+    at_paths = check_path_geometries(torch, bj, tm, shapes_per_path)
+    ends["path_kernels"] = time.perf_counter() - t_start
+    log("phases end at (s): " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in ends.items()))
+    excess = {k: sum(p["excess_ms"] for p in at_paths[k].values())
+              for k in wrappers}
+    log("launches x (ms - bound) over the main paths (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in
+                    sorted(excess.items(), key=lambda kv: -kv[1])))
 
     sources = {"tpf_match": "src/repro_torch/kernels/csrc/tpf_match.cu",
                "bindjoin_grouped": "src/repro_torch/kernels/csrc/bindjoin.cu",
-               "bindjoin_fused": "src/repro_torch/kernels/csrc/bindjoin.cu"}
-    replaces = {"tpf_match": "src/repro/kernels/tpf_match.py:43",
-                "bindjoin_grouped": "src/repro/kernels/bindjoin.py:190",
-                "bindjoin_fused": "src/repro/kernels/bindjoin.py:302"}
-    line = {"kernels": [dict(
-        name=name, route="cuda", source=sources[name],
-        replaces=replaces[name], launches=launches[name],
-        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
-        for name, r in kernels.items()]}
+               "bindjoin_fused": "src/repro_torch/kernels/csrc/bindjoin.cu",
+               "bindjoin": "src/repro_torch/kernels/csrc/bindjoin.cu"}
+    replaces = {"tpf_match": "src/repro/kernels/tpf_match.py:44",
+                "bindjoin_grouped": "src/repro/kernels/bindjoin.py:192",
+                "bindjoin_fused": "src/repro/kernels/bindjoin.py:305",
+                "bindjoin": "src/repro/kernels/bindjoin.py:102"}
+    # Each kernel's times are those at the geometry launched most on
+    # the path that launched it most; "paths" pairs every path's
+    # launches with the times at its own geometries, "largest" is
+    # phase 3's row.
+    entries = []
+    for name, big in kernels.items():
+        paths = at_paths[name]
+        top = max(paths, key=lambda p: paths[p]["launches"])
+        r = paths[top]["geometries"][0]
+        entries.append(dict(
+            name=name, route="cuda", source=sources[name],
+            replaces=replaces[name], launches=launches[name],
+            max_abs_err=max([big["max_abs_err"]] + [
+                g["max_abs_err"] for p in paths.values()
+                for g in p["geometries"]]),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None, path=top,
+            shape=r["shape"], excess_ms=excess[name],
+            paths={p: dict(launches=v["launches"], geometries=[
+                dict(shape=g["shape"], launches=g["launches"], ms=g["ms"],
+                     plain_ms=g["plain_ms"], bound_ms=g["bound_ms"])
+                for g in v["geometries"]]) for p, v in paths.items()},
+            largest={k: big[k] for k in ("shape", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")}))
+    line = {"kernels": entries}
 
     details.update(device=kind, nvidia_smi=smi, build_s=build_s,
-                   kernels=kernels, total_s=time.perf_counter() - t_start)
+                   kernels=kernels, kernels_at_paths=at_paths,
+                   total_s=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

@@ -7,7 +7,8 @@ TPF/brTPF server (``server``) with its kernel-backed selector
 (``kernel_selectors``), the two client algorithms (``client``), the
 async batching front end (``batching``), LRU cache simulation
 (``cache``), the unified page-granular fragment store under every cache
-layer (``fragments``), and request accounting (``metrics``).
+layer (``fragments``), request accounting (``metrics``), and the sharded
+backend (``federation``, with workload-aware ``placement``).
 """
 from .batching import (AsyncBrTPFServer, BatchStats, DeadlineExceeded,
                        QueueSaturated, drive_streams, serve_concurrent)
@@ -29,9 +30,10 @@ from .server import (BrTPFServer, MaxMprExceeded, Request,
 from .store import (CandidateRange, SpanGroup, SubRanges, TripleStore,
                     merge_spans, store_from_ntriples)
 
-# KernelSelector/LaunchRecord are imported from
-# repro_torch.core.kernel_selectors directly; server.py imports them
-# lazily for selector_backend="kernel".
+# KernelSelector/LaunchRecord and FederatedStore/ShardedSelector are
+# imported from repro_torch.core.kernel_selectors and
+# repro_torch.core.federation directly, as in the JAX package; server.py
+# imports them lazily for selector_backend="kernel" / "sharded".
 __all__ = [
     "AsyncBrTPFClient", "AsyncBrTPFServer", "BatchStats",
     "BGP", "BrTPFClient", "BrTPFServer", "CandidateRange",

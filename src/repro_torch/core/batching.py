@@ -217,6 +217,14 @@ class AsyncBrTPFServer:
         self._cancel_timer()
         await self._flush("close")
 
+    async def repartition(self, heat=None) -> None:
+        """Atomic placement cutover (docs/federation.md, "Placement"):
+        runs ``BrTPFServer.repartition`` under the flush lock, so the
+        store swap + fragment invalidation land strictly between
+        flushes -- no batch is ever served half-old, half-new."""
+        async with self._flush_lock:
+            self.server.repartition(heat)
+
     # -- flush machinery -----------------------------------------------------
 
     def _cancel_timer(self) -> None:

@@ -87,6 +87,8 @@ class _ClientBase:
         if omega is not None:
             self.server.counters.mappings_sent += int(omega.shape[0])
         before = self.server.counters.snapshot()
+        shard_snap = getattr(self.server, "shard_launch_snapshot", None)
+        before_shards = shard_snap() if shard_snap is not None else None
         frag = self.server.handle(req)
         after = self.server.counters
         # Structured per-request record: feeds the multi-client
@@ -110,6 +112,12 @@ class _ClientBase:
             "pats": after.kernel_pat_slots - before.kernel_pat_slots,
             "launches": (after.kernel_launches
                          - before.kernel_launches),
+            # per-shard planned-page delta (sharded backend; empty
+            # otherwise) -- feeds the sim's shard-heat model
+            "shard_pages": (
+                tuple((shard_snap() - before_shards).astype(int).tolist())
+                if before_shards is not None and before_shards.size
+                else ()),
         })
         self.client_cache.put(req.key(), frag)
         return frag

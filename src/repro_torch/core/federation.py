@@ -1,0 +1,1474 @@
+"""Distributed brTPF: the triple store split into logical shards.
+
+The port of ``repro.core.federation``. The paper (section 2.2) notes
+that TPF-style interfaces compose into federations of servers. The JAX
+package lays the federation over a device mesh, one shard per device.
+Here every shard lives on ONE CUDA device: the mesh axis becomes a
+leading *logical shard axis* of every store tensor (``[shards, shard_n,
+...]``), the all-gather back to the client is the identity on that
+axis, and a step makes one launch per kernel covering all shards (their
+windows laid end to end as one candidate stream, since the bind-join and
+match kernels are independent per row). Every step returns the
+reference's post-all-gather shapes: ``(shards, G, W[, C])``,
+``(shards, G)`` and ``(shards,)``. Multiple GPUs are not used.
+
+A request -- (triple pattern, attached mappings) -- is evaluated by
+every shard on its own partition: each shard binary-searches its sorted
+keys for the pattern's bound-prefix range and streams only a fixed
+``window`` of it per launch, so per-request device work scales with the
+window, never with the range or the shard size.
+:class:`ShardedSelector` packages this as a selector backend for
+:class:`~repro_torch.core.server.BrTPFServer` (``selector_backend=
+"sharded"``), byte-identical to ``selectors.brtpf_select_with_cnt`` and
+sharing the grouped multi-request geometry and the
+:class:`~repro_torch.core.kernel_selectors.LaunchRecord` accounting with
+the single-host kernel path. The host planner (``plan_windows``) and the
+ordering epilogue (``stream_order``) stay numpy, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import ops as kops
+from .fragments import FragmentStore, fragment_key
+from .kernel_selectors import (_EMPTY, FUSED_BT, FusedSegment,
+                               LaunchRecord, _fused_base_mask,
+                               consult_fragments, consult_segment,
+                               finish_segment, fusion_legality,
+                               marshal_pattern_grid, record_fragments,
+                               select_block_numpy, stream_order)
+from .placement import HeatLog, Placement
+from .rdf import TriplePattern, is_var
+from .selectors import instantiate_patterns
+from .store import _ORDERS, _pack
+
+# Default per-shard window: one launch streams this many candidate rows
+# per shard. The reference sized it as 8 x 128 TPU VPU sublane x lane
+# tiles; that rationale is a TPU one. The port keeps the value only so
+# that the launch geometry (pages, LaunchRecords, budgets) equals the
+# reference's.
+DEFAULT_SHARD_WINDOW = 1024
+
+_PAD_KEY = np.iinfo(np.int64).max
+
+
+def _to(x, device, dtype=None) -> torch.Tensor:
+    """Host value (numpy, int or tensor) -> tensor on ``device``."""
+    return torch.as_tensor(x, dtype=dtype).to(device)
+
+
+def _search(keys: torch.Tensor, lo: int, hi: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard [start, end) of the inclusive key range [lo, hi]: one
+    batched ``searchsorted`` over ``keys[shards, shard_n]``."""
+    s = keys.shape[0]
+    lo_t = torch.full((s, 1), int(lo), dtype=torch.int64, device=keys.device)
+    hi_t = torch.full((s, 1), int(hi), dtype=torch.int64, device=keys.device)
+    start = torch.searchsorted(keys, lo_t, side="left")[:, 0]
+    end = torch.searchsorted(keys, hi_t, side="right")[:, 0]
+    return start, end
+
+
+def _shard_rows(cand: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Gather rows ``pos[s, ...]`` of each shard ``s`` of ``cand[s, n, ...]``
+    (the per-shard ``dynamic_slice`` / ``take`` of the reference)."""
+    sidx = torch.arange(cand.shape[0], device=cand.device)
+    return cand[sidx.reshape(-1, *([1] * (pos.dim() - 1))), pos]
+
+
+def _local_brtpf(cand: torch.Tensor, patterns: torch.Tensor,
+                 pat_valid: torch.Tensor, base_vec: torch.Tensor,
+                 cand_valid: torch.Tensor, capacity: int):
+    """Per-shard selector: Definition 1 on every local partition.
+
+    ``cand`` is int32 [shards, n, 3] with ``cand_valid`` bool [shards, n];
+    all shards go through the ungrouped bind-join and the match kernel
+    in one launch each. ``base_vec`` carries the original pattern's
+    repeated-variable equality flags (the instantiated-pattern grid
+    alone cannot express them). Returns fixed-shape local pages
+    (shards, capacity, 3) padded with -1, and the per-shard counts.
+    """
+    s, n = cand_valid.shape
+    flat = cand.reshape(s * n, 3)
+    keep, _ = kops.bindjoin(flat, patterns, pat_valid)
+    keep = keep & kops.tpf_match(flat, base_vec) & cand_valid.reshape(-1)
+    idx, count = kops.compact_mask(keep.reshape(s, n), capacity)
+    page = _shard_rows(cand, idx.clamp(min=0).long())
+    page = torch.where((idx >= 0)[..., None], page, -1)
+    return page, count
+
+
+def _grouped_epilogue(win: torch.Tensor, ok: torch.Tensor,
+                      pats: torch.Tensor, pat_valid: torch.Tensor,
+                      base_vec: torch.Tensor, capacity: int,
+                      wild_cols: tuple, bt: int = kops.DEFAULT_BT):
+    """The grouped windowed steps' body over every shard's window.
+
+    ``win`` int32 [shards, W, 3], ``ok`` bool [shards, W] (valid and
+    inside the owned span). One grouped bind-join launch and one match
+    launch over the shards' windows laid end to end, then per (shard,
+    group): compacted kept rows (projected to ``wild_cols``), their
+    first-matching-pattern index, the kept count and the Definition-2
+    ``cnt`` contribution. Shapes (S, G, capacity[, C]) / (S, G).
+    """
+    s, w = ok.shape
+    flat = win.reshape(s * w, 3)
+    keep, idx, nmatch = kops.bindjoin_grouped(flat, pats, pat_valid, bt=bt)
+    base = kops.tpf_match(flat, base_vec)
+    g = keep.shape[1]
+    mask = (keep & base[:, None] & ok.reshape(-1)[:, None]).reshape(s, w, g)
+    cnts = torch.where(mask, nmatch.reshape(s, w, g), 0).sum(dim=1)
+    rows, counts = kops.compact_mask(mask.transpose(1, 2), capacity)
+    safe = rows.clamp(min=0).long()                       # (S, G, cap)
+    page = _shard_rows(win, safe)[..., list(wild_cols)]
+    first = torch.gather(idx.reshape(s, w, g).transpose(1, 2), 2, safe)
+    live = rows >= 0
+    page = torch.where(live[..., None], page, -1)
+    first = torch.where(live, first, -1)
+    return page, first, counts, cnts
+
+
+@dataclasses.dataclass
+class ShardIndex:
+    """One component order's per-shard sorted mirror of the partition.
+
+    ``host_keys`` keeps a host-side copy of the per-shard sorted keys:
+    the request planner (:meth:`FederatedStore.plan_windows`) uses it to
+    binary-search shard-local ranges and Omega sub-ranges *before*
+    launching, so windows provably disjoint from every sub-range are
+    never dispatched. (The device step re-derives the same bounds with
+    an on-device searchsorted -- the host copy only steers which pages
+    launch, it never feeds result data.)
+    """
+
+    name: str                # "spo" | "pos" | "osp"
+    triples: torch.Tensor    # int32 [shards, shard_n, 3], per-shard sorted
+    valid: torch.Tensor      # bool  [shards, shard_n]
+    keys: torch.Tensor       # int64 [shards, shard_n]
+    host_keys: np.ndarray    # int64 [shards, shard_n] (same values)
+
+    @classmethod
+    def on_device(cls, name: str, triples: np.ndarray, valid: np.ndarray,
+                  keys: np.ndarray, device) -> "ShardIndex":
+        return cls(name=name, triples=_to(triples, device),
+                   valid=_to(valid, device), keys=_to(keys, device),
+                   host_keys=keys)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.triples, self.valid, self.keys))
+
+
+@dataclasses.dataclass
+class WindowPlan:
+    """Host-side launch plan for one (grouped) windowed request.
+
+    ``pages`` lists the window indexes that can contain join-relevant
+    rows on at least one shard; everything else is skipped. Unpruned
+    plans list every page of the pattern's bound-prefix range under
+    ``order``; pruned plans keep only pages intersecting some
+    per-binding sub-range. ``candidate_rows`` is the total (cross-shard)
+    row count inside the relevant sub-ranges -- the small-work fast
+    path's decision quantity.
+    """
+
+    order: str
+    lo_key: int
+    hi_key: int
+    pages: List[int]
+    range_rows: int          # sum over shards of the base range length
+    candidate_rows: int      # rows inside relevant sub-ranges (<= above)
+    pruned: bool
+    pages_total: int         # pages an unpruned plan would launch
+    # Per shard the base range bounds [start, end) -- absolute
+    # shard-local positions. Set on every plan (per-shard attribution
+    # and replica routing need it); ``shard_spans`` additionally carries
+    # the merged live sub-range spans that sub-window compaction needs,
+    # and stays None when unpruned.
+    shard_bounds: Optional[List[Tuple[int, int]]] = None
+    shard_spans: Optional[List[np.ndarray]] = None
+
+
+@dataclasses.dataclass
+class FederatedStore:
+    """Triple store split into ``shards`` logical shards on one device
+    (one shard = one federation member, the reference's one device).
+
+    Each shard keeps its partition sorted with packed int64 keys in all
+    three component orders -- SPO plus the POS/OSP mirrors (every
+    federation member is an HDT-style server with HDT's three indexes).
+    The mirrors are what let unbound-subject patterns (``(?s, p, ?o)``,
+    ``(?s, ?p, o)``) binary-search a narrow shard-local range instead of
+    scanning the whole shard, and the *windowed* request path streams
+    only a fixed window of the chosen order's range per launch. Every
+    order's triples, valid flags and keys live on ``device``.
+    """
+
+    shards: int
+    device: torch.device
+    triples: Optional[torch.Tensor]   # SPO mirror (alias of indexes["spo"])
+    valid: Optional[torch.Tensor]
+    keys: Optional[torch.Tensor]
+    shard_n: int
+    indexes: Dict[str, ShardIndex] = dataclasses.field(
+        default_factory=dict, repr=False)
+    # cache of the windowed request steps, keyed on the static launch
+    # geometry (window, groups, pattern slots, projection) as in the
+    # reference's jit cache.
+    _steps: Dict[tuple, object] = dataclasses.field(
+        default_factory=dict, repr=False)
+    # Workload-aware placement (docs/federation.md, "Placement"): when
+    # set, shard boundaries follow the heat-weighted quantiles instead
+    # of the equal split, and ``placement.replicas`` ranges are held by
+    # several shards (the routed launch path dedups them to one owner).
+    placement: Optional[Placement] = None
+    # Host copy of the unsharded dataset, kept so ``repartition`` can
+    # rebuild under new boundaries without a device gather.
+    host_triples: Optional[np.ndarray] = dataclasses.field(
+        default=None, repr=False)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes held by the three orders' tensors."""
+        return sum(ix.nbytes for ix in self.indexes.values())
+
+    @classmethod
+    def _assemble(cls, triples_np, shards, device, shard_n, indexes,
+                  placement=None) -> "FederatedStore":
+        spo = indexes["spo"]
+        return cls(shards=shards, device=device, triples=spo.triples,
+                   valid=spo.valid, keys=spo.keys, shard_n=shard_n,
+                   indexes=indexes, placement=placement,
+                   host_triples=np.asarray(triples_np))
+
+    @classmethod
+    def build(cls, triples_np: np.ndarray, shards: int = 1,
+              device=None,
+              placement: Optional[Placement] = None) -> "FederatedStore":
+        """Split ``triples_np`` into ``shards`` logical shards on
+        ``device`` (``None`` means CUDA, and raises without it)."""
+        device = kops.resolve_device(device)
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if placement is not None:
+            return cls._build_placed(triples_np, shards, device, placement)
+        n = triples_np.shape[0]
+        shard_n = max(1, -(-n // shards))
+        total = shard_n * shards
+        base = np.full((total, 3), -1, dtype=np.int32)
+        base[:n] = triples_np
+        base_valid = np.zeros((total,), dtype=bool)
+        base_valid[:n] = True
+        rows = np.arange(shards)[:, None]
+        indexes: Dict[str, ShardIndex] = {}
+        for name, comp_order in _ORDERS.items():
+            # per-shard stable sort under this order's packed key
+            # (padding rows key to +inf -> sort last)
+            keys = np.where(
+                base_valid,
+                _pack(base[:, comp_order[0]], base[:, comp_order[1]],
+                      base[:, comp_order[2]]),
+                _PAD_KEY).reshape(shards, shard_n)
+            order = np.argsort(keys, axis=1, kind="stable")
+            indexes[name] = ShardIndex.on_device(
+                name, base.reshape(shards, shard_n, 3)[rows, order],
+                base_valid.reshape(shards, shard_n)[rows, order],
+                np.take_along_axis(keys, order, axis=1), device)
+        return cls._assemble(triples_np, shards, device, shard_n, indexes)
+
+    @classmethod
+    def _build_placed(cls, triples_np: np.ndarray, shards: int, device,
+                      placement: Placement) -> "FederatedStore":
+        """Build under workload-aware boundaries + replicated ranges.
+
+        Per order, each triple's packed key is assigned to the shard
+        whose boundary span owns it (``Placement.shard_of``; orders
+        without boundaries fall back to an equal-count contiguous
+        split), then every :class:`~repro_torch.core.placement.ReplicaRange`'s
+        rows are *additionally* copied onto its replica shards.  Each
+        shard's partition stays a contiguous key range plus whole
+        replicated sub-ranges, sorted -- which is what lets the routed
+        launch path subtract a replica range from non-owners by a pair
+        of binary searches.
+        """
+        per_order_rows: Dict[str, List[np.ndarray]] = {}
+        for name, comp_order in _ORDERS.items():
+            keys = _pack(triples_np[:, comp_order[0]],
+                         triples_np[:, comp_order[1]],
+                         triples_np[:, comp_order[2]])
+            bounds = placement.boundaries.get(name)
+            if bounds is not None and len(bounds) == shards - 1:
+                assign = np.searchsorted(
+                    np.asarray(bounds, dtype=np.int64), keys, side="right")
+            else:
+                # equal-count contiguous fallback over this order's
+                # sorted keys (still a contiguous key partition)
+                order = np.argsort(keys, kind="stable")
+                assign = np.empty(keys.shape, dtype=np.int64)
+                cutpos = np.arange(1, shards) * keys.size // shards
+                assign[order] = np.searchsorted(
+                    cutpos, np.arange(keys.size), side="right")
+            rows = [triples_np[assign == s] for s in range(shards)]
+            for rr in placement.replicas.get(name, ()):
+                sel = (keys >= rr.lo_key) & (keys <= rr.hi_key)
+                block = triples_np[sel]
+                if block.shape[0] == 0:
+                    continue
+                for rs in rr.replicas:
+                    if rs != rr.home:
+                        rows[rs] = np.concatenate([rows[rs], block],
+                                                  axis=0)
+            per_order_rows[name] = rows
+        shard_n = max(1, max(r.shape[0] for rows in per_order_rows.values()
+                             for r in rows))
+        indexes: Dict[str, ShardIndex] = {}
+        for name, comp_order in _ORDERS.items():
+            padded = np.full((shards, shard_n, 3), -1, dtype=np.int32)
+            valid = np.zeros((shards, shard_n), dtype=bool)
+            keys = np.full((shards, shard_n), _PAD_KEY, dtype=np.int64)
+            for s, block in enumerate(per_order_rows[name]):
+                m = block.shape[0]
+                k = _pack(block[:, comp_order[0]], block[:, comp_order[1]],
+                          block[:, comp_order[2]])
+                order = np.argsort(k, kind="stable")
+                padded[s, :m] = block[order]
+                valid[s, :m] = True
+                keys[s, :m] = k[order]
+            indexes[name] = ShardIndex.on_device(name, padded, valid, keys,
+                                                 device)
+        return cls._assemble(triples_np, shards, device, shard_n, indexes,
+                             placement=placement)
+
+    def repartition(self, heat: HeatLog, **plan_kwargs) -> "FederatedStore":
+        """Rebuild with workload-aware boundaries planned from ``heat``.
+
+        Returns a NEW store (rebuild-with-cutover: the caller swaps it in
+        atomically and must invalidate any :class:`FragmentStore` pages
+        planned against the old partitioning).
+        """
+        from .placement import dataset_keys, plan_placement
+        if self.host_triples is None:
+            raise ValueError(
+                "host triples unavailable; the store was not built via "
+                "FederatedStore.build")
+        placement = plan_placement(
+            heat, dataset_keys(self.host_triples), self.shards,
+            **plan_kwargs)
+        return FederatedStore.build(self.host_triples, self.shards,
+                                    device=self.device, placement=placement)
+
+    # -- host-side request marshalling ---------------------------------------
+
+    def request_arrays(self, tp: TriplePattern,
+                       omega: Optional[np.ndarray],
+                       max_mpr: int) -> Tuple[np.ndarray, np.ndarray,
+                                              np.ndarray]:
+        """Host-side request marshalling: instantiate + dedup (server
+        algorithm steps 1-3) and pad to the interface's maxMpR."""
+        insts = instantiate_patterns(tp, omega)
+        if len(insts) > max_mpr:
+            raise ValueError(f"{len(insts)} instantiations > maxMpR")
+        pats = np.full((max_mpr, 3), -1, dtype=np.int32)
+        valid = np.zeros((max_mpr,), dtype=np.int32)
+        for i, p in enumerate(insts):
+            pats[i] = [c if not is_var(c) else -1 for c in p.as_tuple()]
+            valid[i] = 1
+        comps = tp.as_tuple()
+        base_vec = kops.pattern_vec_from(
+            tuple(-1 if is_var(c) else c for c in comps),
+            eq_sp=int(is_var(comps[0]) and comps[0] == comps[1]),
+            eq_so=int(is_var(comps[0]) and comps[0] == comps[2]),
+            eq_po=int(is_var(comps[1]) and comps[1] == comps[2]),
+        )
+        return pats, valid, base_vec
+
+    @staticmethod
+    def prefix_keys(tp: TriplePattern,
+                    order_name: str = "spo") -> Tuple[int, int]:
+        """(lo_key, hi_key) of the pattern's bound prefix under the
+        given index order -- the host-computed range bounds every shard
+        binary-searches (the client computing a page URL, in federation
+        terms). Defaults to the SPO mirror for compatibility with the
+        single-request windowed path."""
+        from .store import _MAX_ID, _ORDERS, _pack
+        comp_order = _ORDERS[order_name]
+        comps = tp.as_tuple()
+        prefix = []
+        for pos in comp_order:
+            if is_var(comps[pos]):
+                break
+            prefix.append(comps[pos])
+        lo_vals = prefix + [0] * (3 - len(prefix))
+        hi_vals = prefix + [_MAX_ID] * (3 - len(prefix))
+        lo = int(_pack(np.int64(lo_vals[0]), np.int64(lo_vals[1]),
+                       np.int64(lo_vals[2])))
+        hi = int(_pack(np.int64(hi_vals[0]), np.int64(hi_vals[1]),
+                       np.int64(hi_vals[2])))
+        return lo, hi
+
+    # -- host-side launch planning (Omega-restricted window skip) ------------
+
+    def plan_windows(self, tp: TriplePattern,
+                     insts: Sequence[TriplePattern],
+                     window: int) -> WindowPlan:
+        """Plan the window launches for one (grouped) request.
+
+        Index choice: when every instantiated pattern shares one shape
+        whose best index binds a longer prefix than the base pattern
+        does under that index, the launch streams THAT order and the
+        per-binding sub-ranges become host-computable window filters;
+        otherwise the base pattern's own best index is used (the
+        POS/OSP mirrors are what make this a real choice -- an
+        unbound-subject pattern no longer scans whole shards).
+
+        Window skip: the per-binding ``(lo, hi)`` key intervals are
+        batch-searchsorted against every shard's host key copy; a window
+        page whose owned span intersects no sub-range on any shard is
+        provably match-free (every triple matching instantiation ``p_j``
+        has its key inside ``p_j``'s interval) and is dropped from
+        ``pages``. Skipping whole pages never reorders or duplicates
+        anything, so parity is untouched.
+        """
+        from .store import (TripleStore, _ORDERS, merge_spans,
+                            prefix_interval_keys)
+        window = max(1, min(int(window), self.shard_n))
+
+        def base_plan(order_name: str) -> WindowPlan:
+            lo, hi = self.prefix_keys(tp, order_name)
+            hk = self.indexes[order_name].host_keys
+            starts = np.array([np.searchsorted(hk[s], lo, side="left")
+                               for s in range(hk.shape[0])])
+            ends = np.array([np.searchsorted(hk[s], hi, side="right")
+                             for s in range(hk.shape[0])])
+            range_rows = int((ends - starts).sum())
+            pages_total = int(max(
+                (-(-int(e - s) // window)
+                 for s, e in zip(starts, ends, strict=True)), default=0))
+            return WindowPlan(order=order_name, lo_key=lo, hi_key=hi,
+                              pages=list(range(pages_total)),
+                              range_rows=range_rows,
+                              candidate_rows=range_rows, pruned=False,
+                              pages_total=pages_total,
+                              shard_bounds=[
+                                  (int(s), int(e)) for s, e in
+                                  zip(starts, ends, strict=True)])
+
+        bname, _ = TripleStore._choose_index(tp)
+        unpruned = base_plan(bname)
+        shapes = {tuple(is_var(c) for c in p.as_tuple()) for p in insts}
+        if len(shapes) != 1 or not insts:
+            return unpruned
+        iname, iplen = TripleStore._choose_index(insts[0])
+        # prefix the BASE pattern binds under the instantiations' best
+        # index: pruning pays only if instantiations bind more
+        comp_order = _ORDERS[iname]
+        base_plen = 0
+        for pos in comp_order:
+            if is_var(tp.as_tuple()[pos]):
+                break
+            base_plen += 1
+        if iplen <= base_plen:
+            return unpruned
+        comps = np.asarray([p.as_tuple() for p in insts], dtype=np.int64)
+        lo_keys, hi_keys = prefix_interval_keys(comps, comp_order, iplen)
+        # base range under the insts' index (already computed when the
+        # instantiations' best order is the base pattern's own)
+        shell = unpruned if iname == bname else base_plan(iname)
+        hk = self.indexes[iname].host_keys
+        pages: set = set()
+        candidate_rows = 0
+        shard_bounds: List[Tuple[int, int]] = []
+        shard_spans: List[np.ndarray] = []
+        for s in range(hk.shape[0]):
+            start = int(np.searchsorted(hk[s], shell.lo_key,
+                                        side="left"))
+            end = int(np.searchsorted(hk[s], shell.hi_key,
+                                      side="right"))
+            shard_bounds.append((start, end))
+            if end <= start:
+                shard_spans.append(np.empty((0, 2), dtype=np.int64))
+                continue
+            a = np.searchsorted(hk[s], lo_keys, side="left")
+            b = np.searchsorted(hk[s], hi_keys, side="right")
+            spans = merge_spans(np.stack([a, b], axis=1))
+            clipped: List[Tuple[int, int]] = []
+            for slo, shi in spans:
+                # instantiation intervals are sub-intervals of the base
+                # range under the same order, but clip defensively
+                slo = max(int(slo), start)
+                shi = min(int(shi), end)
+                if shi <= slo:
+                    continue
+                candidate_rows += shi - slo
+                clipped.append((slo, shi))
+                pages.update(range((slo - start) // window,
+                                   (shi - 1 - start) // window + 1))
+            shard_spans.append(
+                np.asarray(clipped, dtype=np.int64).reshape(-1, 2))
+        pruned = WindowPlan(order=iname, lo_key=shell.lo_key,
+                            hi_key=shell.hi_key, pages=sorted(pages),
+                            range_rows=shell.range_rows,
+                            candidate_rows=candidate_rows, pruned=True,
+                            pages_total=shell.pages_total,
+                            shard_bounds=shard_bounds,
+                            shard_spans=shard_spans)
+        # the base pattern's own index may beat sub-range skipping under
+        # the instantiations' index (fewer actual window dispatches win)
+        return pruned if len(pruned.pages) <= len(unpruned.pages) \
+            else unpruned
+
+    # -- the request path ----------------------------------------------------
+
+    def execute(self, tp: TriplePattern, omega: Optional[np.ndarray],
+                max_mpr: int, capacity: int) -> np.ndarray:
+        """Run one distributed brTPF request; returns matching triples.
+
+        Routed through the windowed step (the default request path):
+        per-shard device work is bounded by the window, and -- unlike
+        :meth:`execute_full` -- the result can never be truncated by an
+        undersized ``capacity`` (each window's page capacity is the
+        window itself).
+        """
+        return self.execute_windowed(tp, omega, max_mpr, capacity,
+                                     window=min(capacity, self.shard_n))
+
+    def execute_full(self, tp: TriplePattern, omega: Optional[np.ndarray],
+                     max_mpr: int, capacity: int) -> np.ndarray:
+        """The paper-faithful baseline: every shard streams its whole
+        partition through the ungrouped bind-join kernel, all shards in
+        one launch. ``capacity`` bounds each shard's local page (matches
+        beyond it are silently dropped)."""
+        if self.placement is not None and self.placement.has_replicas:
+            raise RuntimeError(
+                "execute_full cannot serve a replicated placement: the "
+                "full-shard stream would report replicated ranges once "
+                "per holder -- use the windowed (routed) path")
+        pats, valid, base_vec = self.request_arrays(tp, omega, max_mpr)
+        dev = self.device
+        pages, _counts = self.lowerable(capacity)(
+            self.triples, self.valid, _to(pats, dev), _to(valid, dev),
+            _to(base_vec, dev))
+        pages = pages.reshape(-1, 3).cpu().numpy()
+        keep = pages[:, 0] >= 0  # -1-padded rows are invalid
+        return pages[keep]
+
+    def lowerable(self, capacity: int):
+        """The full-shard-stream request step: ``step(triples, valid,
+        pats, pat_valid, base_vec) -> (pages (S, capacity, 3), counts
+        (S,))``."""
+
+        def step(triples, valid, pats, pat_valid, base_vec):
+            return _local_brtpf(triples, pats, pat_valid, base_vec, valid,
+                                capacity)
+
+        return step
+
+    # -- the windowed request path (default) ---------------------------------
+
+    def lowerable_windowed(self, capacity: int, window: int,
+                           wild_cols: tuple = (0, 1, 2)):
+        """Single-request windowed step:
+
+        1. *windowed scan*: each shard binary-searches its sorted keys
+           for the pattern's bound-prefix range and runs the bind-join
+           kernel over a fixed ``window`` starting there, not the whole
+           shard;
+        2. *column projection*: only the pattern's unbound components
+           (``wild_cols``) come back -- the bound components are implied
+           by the request.
+
+        ``step(triples, valid, keys, pats, pat_valid, base_vec, lo_key,
+        hi_key, page_idx)`` with int ``lo_key``/``hi_key`` (host-computed
+        from the pattern prefix) and int ``page_idx``; returns pages
+        (S, capacity, C), counts (S,) and range lengths (S,). Page
+        windows are *disjoint* spans of the range (a span near the shard
+        edge is masked, not shifted), so paging never double-reports a
+        triple.
+        """
+        window = max(1, min(window, self.shard_n))
+
+        def step(triples, valid, keys, pats, pat_valid, base_vec,
+                 lo_key, hi_key, page_idx):
+            start, end = _search(keys, lo_key, hi_key)
+            win, win_valid, in_span = _window_slice(
+                triples, valid, start, end, page_idx, window)
+            page, count = _local_brtpf(win, pats, pat_valid, base_vec,
+                                       win_valid & in_span, capacity)
+            return page[..., list(wild_cols)], count, end - start
+
+        return step
+
+    def lowerable_windowed_grouped(self, window: int, groups: int,
+                                   wild_cols: tuple = (0, 1, 2)):
+        """Grouped windowed step: G same-pattern requests, one launch.
+
+        Every shard streams ONE window of its bound-prefix range and
+        evaluates all G requests' instantiated-pattern sets against it,
+        so coalesced batches cost one launch per window instead of G.
+        Per (shard, group) the step emits a fixed-shape page of
+        compacted kept rows (capacity = window, so a window's matches
+        always fit), the first-matching-pattern index per kept row, the
+        kept-row count, and the group's Definition-2 ``cnt``
+        contribution; plus each shard's range length for paging. Steps
+        are cached per static geometry on the store (``_steps``).
+
+        ``step(triples, valid, keys, pats, pat_valid, base_vec, lo_key,
+        hi_key, page_idx)`` returns arrays shaped (shards, G, window[, C])
+        / (shards, G) / (shards,).
+        """
+        # clamp before building the cache key, so raw windows that
+        # clamp to the same effective value share one step
+        window = max(1, min(window, self.shard_n))
+        key = ("grouped", window, groups, wild_cols)
+        fn = self._steps.get(key)
+        if fn is not None:
+            return fn
+
+        def step(triples, valid, keys, pats, pat_valid, base_vec,
+                 lo_key, hi_key, page_idx):
+            start, end = _search(keys, lo_key, hi_key)
+            win, win_valid, in_span = _window_slice(
+                triples, valid, start, end, page_idx, window)
+            page, first, counts, cnts = _grouped_epilogue(
+                win, win_valid & in_span, pats, pat_valid, base_vec,
+                window, wild_cols)
+            return page, first, counts, cnts, end - start
+
+        self._steps[key] = step
+        return step
+
+    def lowerable_windowed_routed(self, window: int, groups: int,
+                                  wild_cols: tuple = (0, 1, 2)):
+        """Routed grouped step (docs/federation.md, "Placement").
+
+        Same grouped geometry as :meth:`lowerable_windowed_grouped`, but
+        the shard-local span to stream arrives host-computed as explicit
+        ``(span_lo, span_hi)`` int32 [shards] position vectors instead of
+        being re-derived from ``(lo_key, hi_key)`` on device.  The host
+        planner needs that control under a workload-aware placement: it
+        has already chosen each replicated range's least-loaded owner and
+        subtracted the range from every other holder's span, so a
+        replicated triple is streamed by exactly one shard per request
+        and per-shard spans can differ in length.  A shard with no work
+        this round sends ``(0, 0)``.  Each round streams at most
+        ``window`` rows per shard.
+        """
+        window = max(1, min(window, self.shard_n))
+        key = ("routed", window, groups, wild_cols)
+        fn = self._steps.get(key)
+        if fn is not None:
+            return fn
+
+        def step(triples, valid, pats, pat_valid, base_vec, span_lo,
+                 span_hi):
+            dev = triples.device
+            lo = _to(span_lo, dev, torch.int64)
+            hi = _to(span_hi, dev, torch.int64)
+            slice_start = lo.clamp(0, max(triples.shape[1] - window, 0))
+            pos = (torch.arange(window, device=dev)[None, :]
+                   + slice_start[:, None])
+            in_span = (pos >= lo[:, None]) & (
+                pos < torch.minimum(lo + window, hi)[:, None])
+            win = _shard_rows(triples, pos)
+            ok = _shard_rows(valid, pos) & in_span
+            return _grouped_epilogue(win, ok, pats, pat_valid, base_vec,
+                                     window, wild_cols)
+
+        self._steps[key] = step
+        return step
+
+    def lowerable_windowed_grouped_compact(self, wc: int, groups: int,
+                                           wild_cols: tuple = (0, 1, 2)):
+        """Sub-window compacted grouped step (docs/fusion.md).
+
+        Instead of streaming a contiguous window, each shard gathers an
+        explicit row-index vector of capacity ``wc`` (< window),
+        host-computed from the ``merge_spans`` live spans inside the
+        page's span: when sub-ranges leave large dead gaps *inside* a
+        window, the gather skips them at row granularity. Rows outside
+        every per-binding sub-range are provably match-free, so dropping
+        them cannot change the response; the caller records the
+        reclaimed rows on the :class:`LaunchRecord`.
+
+        ``wc`` is a power of two (the caller only compacts when
+        ``wc <= window // 2``). ``row_sel`` is int32 [shards, wc]; index
+        -1 marks padding slots.
+        """
+        key = ("compact", wc, groups, wild_cols)
+        fn = self._steps.get(key)
+        if fn is not None:
+            return fn
+        bt = min(kops.DEFAULT_BT, wc)
+
+        def step(triples, valid, pats, pat_valid, base_vec, row_sel):
+            rs = _to(row_sel, triples.device, torch.int64)
+            safe = rs.clamp(min=0)
+            win = _shard_rows(triples, safe)                # (S, wc, 3)
+            ok = _shard_rows(valid, safe) & (rs >= 0)
+            return _grouped_epilogue(win, ok, pats, pat_valid, base_vec,
+                                     wc, wild_cols, bt=bt)
+
+        self._steps[key] = step
+        return step
+
+    def lowerable_windowed_fused(self, window: int, segs: int,
+                                 groups: int):
+        """Cross-pattern fused windowed step: S segments, one launch.
+
+        Per round, every shard slices ONE window of *each* segment's
+        bound-prefix range under this step's index order; the windows of
+        all shards and segments are laid end to end as one tile-aligned
+        stream (shard-major) and the fused kernel resolves each tile's
+        segment from ``seg_of_tile`` (the per-shard tile -> segment map,
+        repeated per shard). Per-segment ``(lo, hi)`` keys and page
+        indexes arrive as int64/int32 [S] host vectors; a page index of
+        -1 deactivates its segment for the round (its rows are masked
+        out of every group). Windows are padded to the next power of two
+        ``wp`` with rows that are never ``ok``; the CUDA kernel's tile is
+        256 rows, so a segment's stream extent is at least one tile.
+
+        Returns (page, first, counts, cnts) shaped
+        (shards, S, G, wp[, 3]) / (shards, S, G) -- no column projection:
+        segments bind different components, so the full triples travel
+        back.
+        """
+        window = max(1, min(window, self.shard_n))
+        wp = _pow2(window)
+        key = ("fused", window, segs, groups)
+        fn = self._steps.get(key)
+        if fn is not None:
+            return fn
+        wpk = max(wp, FUSED_BT)         # stream extent of one segment
+        tiles_per_seg = wpk // FUSED_BT
+
+        def step(triples, valid, keys, pats, pat_valid, base_vecs,
+                 lo_keys, hi_keys, page_idx):
+            dev = triples.device
+            s = triples.shape[0]
+            wins, oks = [], []
+            for si in range(segs):
+                pi = int(page_idx[si])
+                start, end = _search(keys, int(lo_keys[si]),
+                                     int(hi_keys[si]))
+                win, wv, ins = _window_slice(triples, valid, start, end,
+                                             pi, window)
+                ok = wv & ins & (pi >= 0)
+                if wpk > window:
+                    win = torch.cat([win, win.new_zeros(
+                        (s, wpk - window, 3))], dim=1)
+                    ok = torch.cat([ok, ok.new_zeros((s, wpk - window))],
+                                   dim=1)
+                wins.append(win)
+                oks.append(ok)
+            stream = torch.stack(wins, dim=1)           # (Sh, S, wpk, 3)
+            flat = stream.reshape(-1, 3)
+            seg_of_tile = torch.arange(
+                segs, dtype=torch.int32, device=dev).repeat_interleave(
+                    tiles_per_seg).repeat(s)
+            keep, idx, nmatch = kops.bindjoin_fused(
+                flat, seg_of_tile, pats, pat_valid, bt=FUSED_BT)
+            seg_of_row = seg_of_tile.repeat_interleave(FUSED_BT)
+            base = _fused_base_mask(flat, seg_of_row, base_vecs)
+            ok = torch.stack(oks, dim=1).reshape(-1)
+            mask = (keep & base[:, None] & ok[:, None]).reshape(
+                s, segs, wpk, groups)
+            cnts = torch.where(mask, nmatch.reshape(mask.shape),
+                               0).sum(dim=2)              # (Sh, S, G)
+            rows, counts = kops.compact_mask(mask.transpose(2, 3), wp)
+            safe = rows.clamp(min=0).long()             # (Sh, S, G, wp)
+            sh = torch.arange(s, device=dev)[:, None, None, None]
+            sg = torch.arange(segs, device=dev)[None, :, None, None]
+            page = stream[sh, sg, safe]                 # (Sh, S, G, wp, 3)
+            first = torch.gather(
+                idx.reshape(s, segs, wpk, groups).transpose(2, 3), 3, safe)
+            live = rows >= 0
+            page = torch.where(live[..., None], page, -1)
+            first = torch.where(live, first, -1)
+            return page, first, counts, cnts
+
+        self._steps[key] = step
+        return step
+
+    def execute_windowed(self, tp: TriplePattern,
+                         omega: Optional[np.ndarray], max_mpr: int,
+                         capacity: int, window: int) -> np.ndarray:
+        """Run the windowed path end-to-end: disjoint window pages until
+        every shard's bound-prefix range is covered, with client-side
+        reconstruction of projected columns.
+
+        Returns the fragment's data-triple sequence byte-identical
+        (values AND order) to ``selectors.brtpf_select_with_cnt``.
+        ``capacity`` is accepted for interface symmetry with
+        :meth:`execute_full` but the per-window page capacity is the
+        window itself, so results are never truncated.
+        """
+        del capacity  # windowed pages are capacity-safe by construction
+        insts = instantiate_patterns(tp, omega)
+        if len(insts) > max_mpr:
+            raise ValueError(f"{len(insts)} instantiations > maxMpR")
+        selector = ShardedSelector(self, window=window)
+        data, _cnt = selector.select_with_cnt(tp, omega, insts)
+        return data
+
+
+def _window_slice(cand, cand_valid, start, end, pi: int, window: int):
+    """Slice window ``pi`` of every shard's local range [start, end).
+
+    ``cand`` is [shards, n, 3], ``start``/``end`` int64 [shards]. The
+    span ``[start + pi*window, min(start + (pi+1)*window, end))`` is what
+    this page *owns*; the physical slice start is clamped into the array
+    so the slice never clips, and ``in_span`` masks the slice back to
+    the owned span (int64 positions) -- spans are disjoint across pages
+    and exactly tile the range, so no triple is reported twice and none
+    is skipped.
+    """
+    shard_n = cand.shape[1]
+    span_lo = start + int(pi) * window
+    slice_start = span_lo.clamp(0, max(shard_n - window, 0))
+    pos = (torch.arange(window, dtype=torch.int64, device=cand.device)[None]
+           + slice_start[:, None])
+    in_span = (pos >= span_lo[:, None]) & (
+        pos < torch.minimum(span_lo + window, end)[:, None])
+    return _shard_rows(cand, pos), _shard_rows(cand_valid, pos), in_span
+
+
+def _pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _subtract_interval(spans: List[Tuple[int, int]], a: int,
+                       b: int) -> List[Tuple[int, int]]:
+    """Remove [a, b) from a sorted list of disjoint [lo, hi) spans."""
+    out: List[Tuple[int, int]] = []
+    for lo, hi in spans:
+        if hi <= a or lo >= b:
+            out.append((lo, hi))
+            continue
+        if lo < a:
+            out.append((lo, a))
+        if hi > b:
+            out.append((b, hi))
+    return out
+
+
+def _chop_spans(spans: List[List[Tuple[int, int]]],
+                window: int) -> Tuple[List[List[Tuple[int, int]]], int]:
+    """Chop each shard's spans into window-sized chunks; returns the
+    per-shard chunk lists and the number of launch rounds (the longest
+    shard's chunk count -- shards with fewer chunks idle in later
+    rounds)."""
+    chunks: List[List[Tuple[int, int]]] = []
+    for shard_spans in spans:
+        cs: List[Tuple[int, int]] = []
+        for lo, hi in shard_spans:
+            p = lo
+            while p < hi:
+                q = min(p + window, hi)
+                cs.append((p, q))
+                p = q
+        chunks.append(cs)
+    rounds = max((len(c) for c in chunks), default=0)
+    return chunks, rounds
+
+
+class ShardedSelector:
+    """Sharded windowed selector with the KernelSelector contract.
+
+    Serves the bindings-restricted selector from a
+    :class:`FederatedStore` without ever materializing a candidate
+    range: each launch streams one ``window`` per shard, G same-pattern
+    requests share the launch (grouped geometry), and the host epilogue
+    (:func:`~repro_torch.core.kernel_selectors.stream_order` over the
+    shards' kept rows + first-match indices) makes the returned
+    data-triple sequence and Definition-2 ``cnt`` byte-identical to
+    ``selectors.brtpf_select_with_cnt``.
+
+    Why parity holds across shards: the store partitions the triples,
+    so every triple is evaluated on exactly one shard, and page spans
+    are disjoint within a shard -- each matching triple is kept exactly
+    once, with the same first-matching-pattern stream id the single-host
+    kernel computes; the epilogue's (stream, packed-key) sort is a total
+    order, so concatenation order across shards/windows is irrelevant.
+    ``cnt`` sums the per-row matching-pattern counts over all shards,
+    which equals the oracle's sum of per-instantiation stream sizes.
+
+    ``launches`` records one :class:`LaunchRecord` per window launch
+    with ``cand_streamed = window`` -- the rows ONE shard streams --
+    so the accounting surface (and the budgets gated on it) is shared
+    with the single-host kernel path.
+
+    Omega-restricted pruning (docs/pruning.md): every request is
+    launched from a host-side :class:`WindowPlan` -- the POS/OSP
+    mirrors let the plan pick the order with the longest bound prefix
+    (unbound-subject patterns stop scanning whole shards), and window
+    pages disjoint from every per-binding sub-range are skipped
+    outright. With ``store`` connected and ``fast_path_rows`` > 0,
+    plans whose relevant row count falls below the threshold are served
+    by the numpy block evaluation instead of launching windows.
+    """
+
+    def __init__(self, fed: FederatedStore,
+                 window: int = DEFAULT_SHARD_WINDOW,
+                 fragments: Optional[FragmentStore] = None,
+                 store=None, fast_path_rows: int = 0,
+                 heat: Optional[HeatLog] = None) -> None:
+        self.fed = fed
+        self.window = max(1, min(int(window), fed.shard_n))
+        self.fragments = fragments
+        self.store = store
+        self.fast_path_rows = int(fast_path_rows)
+        self.launches: List[LaunchRecord] = []
+        # Placement surfaces (docs/federation.md, "Placement"): the
+        # bounded heat log the re-partitioner consumes, and per-shard
+        # attribution counters -- launches a shard had work in, candidate
+        # rows it streamed, and planned window pages it owned.
+        self.heat = heat
+        self.shard_launches = np.zeros((fed.shards,), dtype=np.int64)
+        self.shard_rows = np.zeros((fed.shards,), dtype=np.int64)
+        self.shard_pages = np.zeros((fed.shards,), dtype=np.int64)
+
+    # -- placement surfaces (docs/federation.md, "Placement") ---------------
+
+    def shard_balance(self) -> dict:
+        """JSON-safe per-shard balance snapshot (metrics ``shards``)."""
+        from .metrics import shard_balance
+        return shard_balance(self.shard_launches.tolist(),
+                             self.shard_rows.tolist(),
+                             self.shard_pages.tolist())
+
+    def reset_shard_counters(self) -> None:
+        self.shard_launches[:] = 0
+        self.shard_rows[:] = 0
+        self.shard_pages[:] = 0
+
+    def rebind(self, fed: FederatedStore) -> None:
+        """Cutover to a repartitioned store: swap the federation, clamp
+        the window to the new shard size, and restart the per-shard
+        attribution (old counts were measured against old boundaries).
+        The heat log is kept -- it describes the workload, not the
+        partitioning."""
+        self.fed = fed
+        self.window = max(1, min(self.window, fed.shard_n))
+        self.shard_launches = np.zeros((fed.shards,), dtype=np.int64)
+        self.shard_rows = np.zeros((fed.shards,), dtype=np.int64)
+        self.shard_pages = np.zeros((fed.shards,), dtype=np.int64)
+
+    def _charge_shard_page(self, plan: WindowPlan, window: int,
+                           page_idx: int,
+                           row_sel: Optional[np.ndarray] = None) -> None:
+        """Attribute one window page to the shards that had work in it."""
+        if plan.shard_bounds is None:
+            return
+        for s, (start, end) in enumerate(plan.shard_bounds):
+            plo = start + page_idx * window
+            phi = min(plo + window, end)
+            if phi <= plo:
+                continue
+            if row_sel is not None:
+                rows = int((row_sel[s] >= 0).sum())
+                if rows == 0:
+                    continue
+            elif plan.pruned and plan.shard_spans is not None:
+                rows = 0
+                for lo, hi in np.asarray(
+                        plan.shard_spans[s]).reshape(-1, 2):
+                    rows += max(0, min(int(hi), phi) - max(int(lo), plo))
+                if rows == 0:
+                    continue
+            else:
+                rows = phi - plo
+            self.shard_launches[s] += 1
+            self.shard_pages[s] += 1
+            self.shard_rows[s] += rows
+
+    def _routed_spans(self, plan: WindowPlan) -> List[List[Tuple[int, int]]]:
+        """Per-shard live [lo, hi) position spans for the routed path,
+        with every overlapping replica range deduped to its least-loaded
+        owner (the other holders get the range subtracted -- a pair of
+        binary searches, since each holder's copy is sorted)."""
+        fed = self.fed
+        hk = fed.indexes[plan.order].host_keys
+        shards = hk.shape[0]
+        spans: List[List[Tuple[int, int]]] = []
+        if plan.pruned and plan.shard_spans is not None:
+            for sp in plan.shard_spans:
+                spans.append([(int(a), int(b)) for a, b in
+                              np.asarray(sp).reshape(-1, 2) if b > a])
+        elif plan.shard_bounds is not None:
+            spans = [[(int(a), int(b))] if b > a else []
+                     for a, b in plan.shard_bounds]
+        else:
+            for s in range(shards):
+                a = int(np.searchsorted(hk[s], plan.lo_key, side="left"))
+                b = int(np.searchsorted(hk[s], plan.hi_key, side="right"))
+                spans.append([(a, b)] if b > a else [])
+        placement = fed.placement
+        if placement is None:
+            return spans
+        for rr in placement.replicas.get(plan.order, ()):
+            if rr.hi_key < plan.lo_key or rr.lo_key > plan.hi_key:
+                continue
+            holders = rr.holders
+            owner = min(holders,
+                        key=lambda s: (int(self.shard_pages[s]), s))
+            for s in holders:
+                if s == owner:
+                    continue
+                a = int(np.searchsorted(hk[s], rr.lo_key, side="left"))
+                b = int(np.searchsorted(hk[s], rr.hi_key, side="right"))
+                if b > a:
+                    spans[s] = _subtract_interval(spans[s], a, b)
+        return spans
+
+    # -- public API (same contract as KernelSelector) ------------------------
+
+    def select_with_cnt(
+        self, tp: TriplePattern, omega: Optional[np.ndarray],
+        insts: Optional[List[TriplePattern]] = None,
+    ) -> Tuple[np.ndarray, int]:
+        """Sharded ``brtpf_select_with_cnt`` (byte-identical)."""
+        return self.select_same_pattern(
+            tp, [omega], None if insts is None else [insts])[0]
+
+    def select_same_pattern(
+        self, tp: TriplePattern, omegas: Sequence[Optional[np.ndarray]],
+        patterns: Optional[List[List[TriplePattern]]] = None,
+    ) -> List[Tuple[np.ndarray, int]]:
+        """Serve G same-pattern requests from one sharded launch per
+        window page. Returns per-request (data sequence, cnt), each
+        identical to ``brtpf_select_with_cnt(store, tp, omega_g)``.
+
+        Groups resident in the connected fragment store never launch a
+        window: their share is recorded as skipped (same contract as
+        :class:`~repro_torch.core.kernel_selectors.KernelSelector`)."""
+        if patterns is None:
+            patterns = [instantiate_patterns(tp, om) for om in omegas]
+        results, live = consult_fragments(self.fragments, tp, omegas,
+                                          self.launches)
+        if live:
+            live_omegas = [omegas[i] for i in live]
+            fresh = self._launch_groups(tp, live_omegas,
+                                        [patterns[i] for i in live])
+            record_fragments(self.fragments, tp, live_omegas, fresh)
+            for i, res in zip(live, fresh, strict=True):
+                results[i] = res
+        return results
+
+    def select_count(self, tp: TriplePattern, omega: Optional[np.ndarray],
+                     insts: Optional[List[TriplePattern]] = None) -> int:
+        """Count-only sharded selection: Definition-2 ``cnt``, no row
+        gather, no kept pages copied back (docs/fusion.md)."""
+        if self.fragments is not None:
+            got = self.fragments.peek_data(
+                fragment_key(tp.as_tuple(), omega), touch=True)
+            if got is not None:
+                self.fragments.note_skip()
+                self.launches.append(LaunchRecord(
+                    cand_streamed=0, pat_slots=0, groups=1, skipped=True))
+                return int(got[1])
+        patterns = [insts if insts is not None
+                    else instantiate_patterns(tp, omega)]
+        return self._launch_groups(tp, [omega], patterns,
+                                   count_only=True)[0][1]
+
+    def _launch_groups(
+        self, tp: TriplePattern, omegas: Sequence[Optional[np.ndarray]],
+        patterns: List[List[TriplePattern]],
+        count_only: bool = False,
+    ) -> List[Tuple[np.ndarray, int]]:
+        """Windowed sharded launches over the store-miss groups."""
+        all_insts = [p for group in patterns for p in group]
+        plan = self.fed.plan_windows(tp, all_insts, self.window)
+        return self._launch_plan(tp, patterns, plan,
+                                 count_only=count_only)
+
+    def _gather_fast_block(self, tp: TriplePattern,
+                           all_insts: List[TriplePattern]) -> np.ndarray:
+        """Host-side pruned candidate block for the small-work path."""
+        sr = self.store.subranges(tp, insts=all_insts)
+        if sr is not None and sr.rows < len(
+                self.store.candidate_range(tp)):
+            return self.store.gather_subranges(sr)
+        return self.store.candidate_range(tp).triples
+
+    def _page_row_sel(self, plan: WindowPlan, window: int,
+                      page: int) -> Optional[np.ndarray]:
+        """Sub-window compaction plan for one page (docs/fusion.md).
+
+        Intersects each shard's live ``merge_spans`` sub-ranges with the
+        page's owned span; if the widest shard's live row count, padded
+        to a power of two, is at most half the window, returns the
+        int32 [shards, wc] gather-index table (-1 padding) for
+        ``lowerable_windowed_grouped_compact``. Otherwise (dead gaps too
+        small to pay for the gather) returns None and the page streams
+        contiguously as before.
+        """
+        if not plan.pruned or plan.shard_spans is None \
+                or plan.shard_bounds is None:
+            return None
+        per_shard: List[np.ndarray] = []
+        need = 0
+        for (start, end), spans in zip(plan.shard_bounds,
+                                       plan.shard_spans, strict=True):
+            plo = start + page * window
+            phi = min(plo + window, end)
+            segs = [np.arange(max(int(lo), plo), min(int(hi), phi),
+                              dtype=np.int64)
+                    for lo, hi in spans]
+            segs = [a for a in segs if a.size]
+            live = np.concatenate(segs) if segs \
+                else np.empty((0,), dtype=np.int64)
+            per_shard.append(live)
+            need = max(need, int(live.size))
+        wc = _pow2(max(need, 1))
+        if wc > window // 2:
+            return None
+        sel = np.full((len(per_shard), wc), -1, dtype=np.int32)
+        for s, live in enumerate(per_shard):
+            sel[s, :live.size] = live.astype(np.int32)
+        return sel
+
+    def _launch_plan(
+        self, tp: TriplePattern, patterns: List[List[TriplePattern]],
+        plan: WindowPlan, count_only: bool = False,
+    ) -> List[Tuple[np.ndarray, int]]:
+        """Execute one planned (grouped) request: fast path or windows."""
+        g = len(patterns)
+        m = max(len(p) for p in patterns)
+        window = self.window
+        if not plan.pages:
+            # no window can contain a match on any shard (empty range,
+            # or every sub-range empty): zero launches, cnt = 0
+            return [(_EMPTY, 0)] * g
+
+        # Small-work fast path: the plan's relevant rows cannot pay for
+        # window dispatches -- evaluate the groups over the pruned block
+        # gathered from the (host) oracle store instead.
+        if (self.store is not None
+                and 0 < plan.candidate_rows <= self.fast_path_rows):
+            block = self._gather_fast_block(
+                tp, [p for group in patterns for p in group])
+            self.launches.append(LaunchRecord(
+                cand_streamed=int(block.shape[0]), pat_slots=0, groups=g,
+                pruned=plan.pruned, cand_full=plan.range_rows,
+                fast_path=True))
+            return select_block_numpy(block, tp, patterns,
+                                      count_only=count_only)
+
+        # pad the grid to bucketed shapes (the reference's geometry):
+        # groups to a power of two, pattern slots to the kernel m-tile.
+        gpad = _pow2(g)
+        mp = kops.padded_pattern_slots(m)
+        pats, valid, base_vec = marshal_pattern_grid(tp, patterns,
+                                                     gpad, mp)
+        comps = tp.as_tuple()
+        wild = [i for i, c in enumerate(comps) if is_var(c)]
+        wild_cols = tuple(wild) or (0,)  # dummy column when fully bound
+        idx = self.fed.indexes[plan.order]
+        routed = self.fed.placement is not None
+        fn = None if routed else self.fed.lowerable_windowed_grouped(
+            window, gpad, wild_cols=wild_cols)
+
+        dev = self.fed.device
+        pats_dev = _to(pats, dev)
+        valid_dev = _to(valid, dev)
+        bv_dev = _to(base_vec, dev)
+        kept: List[List[np.ndarray]] = [[] for _ in range(g)]
+        firsts: List[List[np.ndarray]] = [[] for _ in range(g)]
+        cnt_total = np.zeros((g,), dtype=np.int64)
+        n_launched = 0
+        if routed:
+            # workload-aware placement: explicit per-shard spans with
+            # replica ranges routed to one owner each
+            spans = self._routed_spans(plan)
+            chunks, rounds = _chop_spans(spans, window)
+            rfn = self.fed.lowerable_windowed_routed(
+                window, gpad, wild_cols=wild_cols)
+            page_rounds = []
+            for r in range(rounds):
+                span_lo = np.zeros((len(chunks),), dtype=np.int32)
+                span_hi = np.zeros((len(chunks),), dtype=np.int32)
+                for s, cs in enumerate(chunks):
+                    if r < len(cs):
+                        span_lo[s], span_hi[s] = cs[r]
+                page_rounds.append(rfn(
+                    idx.triples, idx.valid, pats_dev, valid_dev, bv_dev,
+                    span_lo, span_hi))
+                self.launches.append(LaunchRecord(
+                    cand_streamed=window, pat_slots=gpad * mp,
+                    groups=g, pruned=plan.pruned, cand_full=window))
+                n_launched += 1
+                for s, cs in enumerate(chunks):
+                    if r < len(cs):
+                        a, b = cs[r]
+                        self.shard_launches[s] += 1
+                        self.shard_pages[s] += 1
+                        self.shard_rows[s] += b - a
+            for out in page_rounds:
+                cnt_total += _collect(out, g, kept, firsts, count_only)
+        else:
+            for page_idx in plan.pages:
+                row_sel = self._page_row_sel(plan, window, page_idx)
+                if row_sel is not None:
+                    # sub-window compaction: gather only the live rows
+                    wc = row_sel.shape[1]
+                    cfn = self.fed.lowerable_windowed_grouped_compact(
+                        wc, gpad, wild_cols=wild_cols)
+                    out = cfn(idx.triples, idx.valid, pats_dev, valid_dev,
+                              bv_dev, row_sel)
+                    self.launches.append(LaunchRecord(
+                        cand_streamed=wc, pat_slots=gpad * mp, groups=g,
+                        pruned=True, cand_full=window,
+                        reclaimed_rows=window - wc))
+                else:
+                    out = fn(idx.triples, idx.valid, idx.keys, pats_dev,
+                             valid_dev, bv_dev, plan.lo_key, plan.hi_key,
+                             page_idx)[:4]
+                    self.launches.append(LaunchRecord(
+                        cand_streamed=window, pat_slots=gpad * mp,
+                        groups=g, pruned=plan.pruned, cand_full=window))
+                n_launched += 1
+                self._charge_shard_page(plan, window, page_idx,
+                                        row_sel=row_sel)
+                cnt_total += _collect(out, g, kept, firsts, count_only)
+        if self.heat is not None and n_launched:
+            self.heat.record(plan.order, plan.lo_key, plan.hi_key,
+                             launches=n_launched,
+                             rows=plan.candidate_rows,
+                             pages=len(plan.pages))
+
+        out: List[Tuple[np.ndarray, int]] = []
+        for gi in range(g):
+            if count_only or not kept[gi]:
+                out.append((_EMPTY, int(cnt_total[gi])))
+                continue
+            proj = np.concatenate(kept[gi], axis=0)
+            first_g = np.concatenate(firsts[gi], axis=0)
+            # reconstruct full triples from the request's bound
+            # components (the wire carried only unbound columns)
+            full = np.empty((proj.shape[0], 3), dtype=np.int32)
+            for i, c in enumerate(comps):
+                if is_var(c):
+                    full[:, i] = proj[:, wild.index(i)]
+                else:
+                    full[:, i] = c
+            out.append((stream_order(full, first_g, patterns[gi]),
+                        int(cnt_total[gi])))
+        return out
+
+    # -- cross-pattern fusion (docs/fusion.md) -------------------------------
+
+    def select_fused(self, segments: Sequence[FusedSegment]
+                     ) -> List[List[Tuple[np.ndarray, int]]]:
+        """Serve S heterogeneous segments with fused windowed launches.
+
+        The sharded twin of ``KernelSelector.select_fused``: segments
+        are planned individually (residency skips, ``plan_windows``
+        page skipping, and the small-work fast path behave exactly as
+        unfused), then the launch-worthy segments are grouped BY INDEX
+        ORDER -- only same-order segments can share a window slice pass
+        -- and each order group runs ``lowerable_windowed_fused``: per
+        round, one launch streams one window of every active segment.
+        Segments with fewer planned pages go inactive (page index -1)
+        in later rounds. ``fusion_legality`` refusals and singleton
+        order groups fall back to per-segment ``_launch_plan`` on the
+        already-computed plans.
+        """
+        results: List[List[Optional[Tuple[np.ndarray, int]]]] = [
+            [None] * len(seg.omegas) for seg in segments]
+        work: List[Tuple[int, List[List[TriplePattern]],
+                         List[Optional[np.ndarray]], List[int],
+                         WindowPlan]] = []
+        for si, seg in enumerate(segments):
+            patterns = seg.patterns
+            if patterns is None:
+                patterns = [instantiate_patterns(seg.tp, om)
+                            for om in seg.omegas]
+            live = consult_segment(self.fragments, seg, results[si],
+                                   self.launches)
+            if not live:
+                continue
+            omegas_live = [seg.omegas[i] for i in live]
+            pats_live = [patterns[i] for i in live]
+            all_insts = [p for group in pats_live for p in group]
+            plan = self.fed.plan_windows(seg.tp, all_insts, self.window)
+            if not plan.pages:
+                finish_segment(self.fragments, seg, omegas_live,
+                               [(_EMPTY, 0)] * len(live), results[si],
+                               live)
+                continue
+            if (self.store is not None
+                    and 0 < plan.candidate_rows <= self.fast_path_rows):
+                block = self._gather_fast_block(seg.tp, all_insts)
+                self.launches.append(LaunchRecord(
+                    cand_streamed=int(block.shape[0]), pat_slots=0,
+                    groups=len(live), pruned=plan.pruned,
+                    cand_full=plan.range_rows, fast_path=True))
+                fresh = select_block_numpy(block, seg.tp, pats_live,
+                                           count_only=seg.count_only)
+                finish_segment(self.fragments, seg, omegas_live, fresh,
+                               results[si], live)
+                continue
+            work.append((si, pats_live, omegas_live, live, plan))
+        if not work:
+            return results
+
+        # Legality: declared dependencies refuse the whole batch
+        # (conservative -- DaCe-style fusion only for independent
+        # states); geometry ceilings are checked per order group below.
+        dep_reason = fusion_legality(
+            [segments[w[0]] for w in work], stream_rows=0, slot_table=0)
+
+        by_order: Dict[str, List] = {}
+        for item in work:
+            by_order.setdefault(item[4].order, []).append(item)
+        wp = _pow2(self.window)
+        for items in by_order.values():
+            s_pad = _pow2(len(items))
+            g_pad = _pow2(max(len(w[3]) for w in items))
+            m_max = max(max(len(p) for p in w[1]) for w in items)
+            mp = kops.padded_pattern_slots(m_max)
+            reason = dep_reason or fusion_legality(
+                [segments[w[0]] for w in items],
+                stream_rows=s_pad * wp,
+                slot_table=s_pad * g_pad * mp)
+            if (len(items) == 1 or reason is not None
+                    or self.fed.placement is not None):
+                # documented fallback: per-segment grouped launches on
+                # the plans already in hand (no re-probe, no re-plan).
+                # A workload-aware placement always falls back: the
+                # fused step derives spans on device from (lo, hi) keys
+                # and cannot honor per-shard replica routing.
+                for si, pats_live, omegas_live, live, plan in items:
+                    seg = segments[si]
+                    fresh = self._launch_plan(seg.tp, pats_live, plan,
+                                              count_only=seg.count_only)
+                    finish_segment(self.fragments, seg, omegas_live,
+                                   fresh, results[si], live)
+                continue
+            self._launch_fused_order(items, segments, results,
+                                     s_pad, g_pad, mp)
+        return results
+
+    def _launch_fused_order(self, items, segments, results,
+                            s_pad: int, g_pad: int, mp: int) -> None:
+        """Run one order group's fused windowed rounds + epilogue."""
+        window = self.window
+        wp = _pow2(window)
+        s = len(items)
+        order = items[0][4].order
+        idx = self.fed.indexes[order]
+        pats_all = np.full((s_pad, g_pad, mp, 3), -1, dtype=np.int32)
+        valid_all = np.zeros((s_pad, g_pad, mp), dtype=np.int32)
+        base_vecs = np.zeros((s_pad, 8), dtype=np.int32)
+        lo = np.zeros((s_pad,), dtype=np.int64)
+        hi = np.full((s_pad,), -1, dtype=np.int64)  # empty range for pads
+        for wi, (si, pats_live, _om, _live, plan) in enumerate(items):
+            p_grid, v_grid, bv = marshal_pattern_grid(
+                segments[si].tp, pats_live, g_pad, mp)
+            pats_all[wi], valid_all[wi], base_vecs[wi] = p_grid, v_grid, bv
+            lo[wi], hi[wi] = plan.lo_key, plan.hi_key
+        fn = self.fed.lowerable_windowed_fused(window, s_pad, g_pad)
+        rounds = max(len(w[4].pages) for w in items)
+        for _si, _pl, _om, _live, plan in items:
+            if self.heat is not None and plan.pages:
+                self.heat.record(plan.order, plan.lo_key, plan.hi_key,
+                                 launches=len(plan.pages),
+                                 rows=plan.candidate_rows,
+                                 pages=len(plan.pages))
+            for page_idx in plan.pages:
+                self._charge_shard_page(plan, window, page_idx)
+
+        kept: Dict[Tuple[int, int], List[np.ndarray]] = {}
+        firsts: Dict[Tuple[int, int], List[np.ndarray]] = {}
+        cnt_total = np.zeros((s, g_pad), dtype=np.int64)
+        dev = self.fed.device
+        pats_dev = _to(pats_all, dev)
+        valid_dev = _to(valid_all, dev)
+        bvs_dev = _to(base_vecs, dev)
+        for r in range(rounds):
+            pi = np.full((s_pad,), -1, dtype=np.int32)
+            for wi, item in enumerate(items):
+                pages = item[4].pages
+                if r < len(pages):
+                    pi[wi] = pages[r]
+            active = [wi for wi in range(s) if pi[wi] >= 0]
+            page, first, counts, cnts = fn(
+                idx.triples, idx.valid, idx.keys, pats_dev, valid_dev,
+                bvs_dev, lo, hi, pi)
+            meta = torch.stack((counts.to(torch.int64), cnts)).cpu().numpy()
+            counts = meta[0]
+            cnt_total += meta[1].sum(axis=0)[:s]
+            self.launches.append(LaunchRecord(
+                cand_streamed=len(active) * wp,
+                pat_slots=g_pad * mp,
+                groups=sum(len(items[wi][3]) for wi in active),
+                pruned=any(items[wi][4].pruned for wi in active),
+                cand_full=len(active) * wp,
+                segments=len(active)))
+            gathered = [wi for wi in active
+                        if not segments[items[wi][0]].count_only]
+            n = int(counts[:, gathered].max(initial=0)) if gathered else 0
+            if n == 0:
+                continue   # cnt-only segments or nothing kept: no gather
+            page = page[..., :n, :].cpu().numpy()
+            first = first[..., :n].cpu().numpy()
+            for wi in gathered:
+                for sh in range(page.shape[0]):
+                    for gi in range(len(items[wi][3])):
+                        k = int(counts[sh, wi, gi])
+                        if k:
+                            kept.setdefault((wi, gi), []).append(
+                                page[sh, wi, gi, :k])
+                            firsts.setdefault((wi, gi), []).append(
+                                first[sh, wi, gi, :k])
+
+        for wi, (si, pats_live, omegas_live, live, _plan) in \
+                enumerate(items):
+            seg = segments[si]
+            fresh: List[Tuple[np.ndarray, int]] = []
+            for gi in range(len(live)):
+                cnt = int(cnt_total[wi, gi])
+                rows = kept.get((wi, gi))
+                if seg.count_only or not rows:
+                    fresh.append((_EMPTY, cnt))
+                    continue
+                full = np.concatenate(rows, axis=0)
+                first_g = np.concatenate(firsts[(wi, gi)], axis=0)
+                fresh.append((stream_order(full, first_g,
+                                           pats_live[gi]), cnt))
+            finish_segment(self.fragments, seg, omegas_live, fresh,
+                           results[si], live)
+
+
+def _collect(out, g: int, kept: List[List[np.ndarray]],
+             firsts: List[List[np.ndarray]], count_only: bool) -> np.ndarray:
+    """Host side of one grouped step's outputs: the per-group ``cnt``
+    over all shards (returned), and -- unless ``count_only`` -- each
+    (shard, group)'s kept rows and first-match indices appended to
+    ``kept``/``firsts``. Only the kept prefix of the pages is copied to
+    the host."""
+    page, first, counts, cnts = out
+    meta = torch.stack((counts[:, :g].to(torch.int64),
+                        cnts[:, :g])).cpu().numpy()
+    counts = meta[0]
+    n = int(counts.max(initial=0))
+    if count_only or n == 0:
+        return meta[1].sum(axis=0)
+    page = page[:, :g, :n].cpu().numpy()
+    first = first[:, :g, :n].cpu().numpy()
+    for s in range(page.shape[0]):
+        for gi in range(g):
+            k = int(counts[s, gi])
+            if k:
+                kept[gi].append(page[s, gi, :k])
+                firsts[gi].append(first[s, gi, :k])
+    return meta[1].sum(axis=0)

@@ -23,6 +23,7 @@ same one the JAX package serves at ``GET /metrics``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 
 @dataclasses.dataclass
@@ -124,6 +125,11 @@ def metrics_snapshot(server, batch=None) -> dict:
             "hit_rate": server.cache.hit_rate,
             "entries": len(server.cache),
         }
+    sel = getattr(server, "_selector", None)
+    if sel is not None and hasattr(sel, "shard_balance"):
+        # per-shard balance (sharded backend): the heat source AND its
+        # verification surface (docs/federation.md, "Placement")
+        out["shards"] = sel.shard_balance()
     if batch is not None:
         out["batch"] = {
             "requests": batch.requests,
@@ -144,3 +150,44 @@ def metrics_snapshot(server, batch=None) -> dict:
                              "shed": batch.shed, "deadline_exceeded": 0,
                              "giveups": 0}
     return out
+
+
+def shard_balance(launches: Sequence[int], rows: Sequence[int],
+                  pages: Sequence[int]) -> dict:
+    """Per-shard balance schema (the ``shards`` section of
+    :func:`metrics_snapshot`, docs/federation.md "Placement").
+
+    ``launches``/``rows``/``pages`` are the selector's per-shard
+    attribution counters: launches the shard had work in, candidate rows
+    it streamed, planned window pages it owned. ``imbalance`` is
+    max/mean launches per shard -- 1.0 is perfectly balanced, ``shards``x
+    is everything on one shard; the quantity the workload-aware
+    re-partitioner minimizes and the ``skew_c16:*`` budgets gate.
+    """
+    launches = [int(x) for x in launches]
+    rows = [int(x) for x in rows]
+    pages = [int(x) for x in pages]
+    mean = sum(launches) / max(len(launches), 1)
+    return {
+        "launches": launches,
+        "rows": rows,
+        "pages": pages,
+        "imbalance": (max(launches) / mean) if mean > 0 else 0.0,
+    }
+
+
+def rebalance_report(uniform: dict, heat: dict) -> dict:
+    """Before/after schema for a repartition A/B (the skew benchmark's
+    budget surface): :func:`shard_balance` snapshots measured under the
+    workload-blind equal split (``uniform``) and under the heat-planned
+    placement (``heat``). ``imbalance_drop`` > 1 means the re-partition
+    helped; the ``skew_c16:imbalance_drop`` budget gates it >= 2.
+    """
+    drop = uniform["imbalance"] / max(heat["imbalance"], 1e-9)
+    return {
+        "imbalance_uniform": uniform["imbalance"],
+        "imbalance_heat": heat["imbalance"],
+        "imbalance_drop": drop,
+        "shard_launches_uniform": uniform["launches"],
+        "shard_launches_heat": heat["launches"],
+    }

@@ -21,14 +21,26 @@ bindings-restricted selector:
   request, and ``handle_batch`` coalesces concurrent same-pattern
   requests into one grouped launch and heterogeneous ones into one
   fused launch.
+* ``"sharded"`` -- the windowed selector over a store split into
+  ``ServerConfig.shards`` logical shards on the device
+  (``federation.ShardedSelector`` over a ``FederatedStore``): each
+  launch streams one fixed ``shard_window`` of every shard's sorted
+  range (per-shard work bounded by the window, never by range or shard
+  size), and ``handle_batch`` coalescing rides the same grouped
+  geometry. Fragments are byte-identical to both other backends.
 
-This is the port of ``repro.core.server``; the JAX package's
-``"sharded"`` backend and its wire schema are not ported yet.
+The kernel and sharded backends share one selector interface
+(``select_with_cnt`` / ``select_same_pattern`` / ``launches``) and one
+``LaunchRecord`` accounting surface, so batching, memoization, paging
+and the launch-budget gates are backend-agnostic.
+
+This is the port of ``repro.core.server``; the JAX package's wire
+schema is not ported yet.
 
 Every reuse layer -- the HTTP cache's pages, the selector memo and (via
 ``on_release``) the store's candidate-range memo -- lives in ONE
 unified :class:`~repro_torch.core.fragments.FragmentStore` per server: a
-kernel launch is skipped whenever the requested page is already
+kernel or sharded window launch is skipped whenever the requested page is already
 resident, regardless of which path populated it
 (``Counters.launches_skipped``), and eviction is coherent across layers
 (docs/caching.md).
@@ -137,16 +149,37 @@ class BrTPFServer:
             on_release=store.evict_candidate_range)
         if cache is not None:
             cache.bind(self.fragments)
-        # Accelerated selector (kernel backend, on config.device); None
-        # for the paper-faithful numpy oracle. It consults the unified
-        # store before launching.
+        # Accelerated selector (kernel or sharded backend, on
+        # config.device); None for the paper-faithful numpy oracle. Both
+        # implementations share the select_with_cnt /
+        # select_same_pattern / launches interface, and both consult the
+        # unified store before launching.
         self._selector = None
+        self._heat = None
         if config.selector_backend == "kernel":
             from .kernel_selectors import KernelSelector
             self._selector = KernelSelector(
                 store, fragments=self.fragments,
                 fast_path_rows=config.fast_path_rows,
                 device=config.device)
+        elif config.selector_backend == "sharded":
+            from .federation import (DEFAULT_SHARD_WINDOW, FederatedStore,
+                                     ShardedSelector)
+            from .placement import HeatLog
+            self.federated = FederatedStore.build(
+                store.triples, shards=config.shards,
+                device=config.device)
+            # placement_policy="heat": record per-range heat from live
+            # traffic so repartition() can re-cut shard boundaries
+            # (docs/federation.md, "Placement")
+            self._heat = (HeatLog(config.heat_capacity)
+                          if config.placement_policy == "heat" else None)
+            self._selector = ShardedSelector(
+                self.federated,
+                window=config.shard_window or DEFAULT_SHARD_WINDOW,
+                fragments=self.fragments,
+                store=store, fast_path_rows=config.fast_path_rows,
+                heat=self._heat)
         self.counters = Counters()
         # Memo keys prefilled by the *current* handle_batch call: their
         # subsequent handle() reads are batched work, not cache skips.
@@ -350,10 +383,12 @@ class BrTPFServer:
     def handle_batch(self, reqs: Sequence[Request]) -> List[Fragment]:
         """Serve a set of concurrent page requests as one unit.
 
-        With the kernel backend, brTPF/TPF requests for the *same*
-        triple pattern whose selector results are not already available
-        (memo or HTTP cache) are coalesced into one grouped launch -- one
-        shared pass over the pattern's candidate stream instead of one
+        With an accelerated backend (kernel or sharded), brTPF/TPF
+        requests for the *same* triple pattern whose selector results
+        are not already available (memo or HTTP cache) are coalesced
+        into one grouped launch sequence -- one shared pass over the
+        pattern's candidate stream (the range bucket on the kernel
+        path; each per-shard window on the sharded path) instead of one
         pass per request. Responses (and all paging / caching /
         transfer accounting) are identical to issuing the requests
         through :meth:`handle` one by one.
@@ -453,9 +488,49 @@ class BrTPFServer:
         schema the JAX package serves at ``GET /metrics``."""
         return metrics_snapshot(self)
 
+    def shard_launch_snapshot(self) -> np.ndarray:
+        """Copy of the per-shard planned-window-page counters (sharded
+        backend only; empty for the others) -- the delta surface the
+        client's per-request trace record reads (docs/federation.md,
+        "Placement")."""
+        sel = self._selector
+        if sel is not None and hasattr(sel, "shard_pages"):
+            return np.array(sel.shard_pages, dtype=np.int64)
+        return np.zeros((0,), dtype=np.int64)
+
+    def repartition(self, heat=None) -> None:
+        """Workload-aware re-fragmentation cutover (docs/federation.md,
+        "Placement").
+
+        Plans a placement from the recorded heat (the server's own
+        ``placement_policy="heat"`` log unless one is passed), rebuilds
+        the :class:`~repro_torch.core.federation.FederatedStore` under
+        the new boundaries + replica ranges, rebinds the selector, and
+        clears the unified fragment store -- conservative cutover
+        coherence: fragments are byte-identical across partitionings,
+        but resident pages predate the new boundaries and serving them
+        residency-free would hide the rebalance from the per-shard
+        counters. The async front end wraps this under its flush lock
+        (``AsyncBrTPFServer.repartition``) so the swap lands atomically
+        between flushes.
+        """
+        if self.selector_backend != "sharded":
+            raise RuntimeError("repartition requires the sharded backend")
+        heat = heat if heat is not None else self._heat
+        if heat is None or len(heat) == 0:
+            raise ValueError(
+                "no heat recorded: pass a HeatLog, or construct the "
+                "server with placement_policy='heat'")
+        self.federated = self.federated.repartition(heat)
+        self._selector.rebind(self.federated)
+        self.fragments.clear()
+
     def reset_counters(self) -> None:
         self.counters.reset()
         self.fragments.reset_counters()
+        sel = self._selector
+        if sel is not None and hasattr(sel, "reset_shard_counters"):
+            sel.reset_shard_counters()
         self._range_base = (self.store.range_memo_hits,
                             self.store.range_memo_misses)
         if self.cache is not None:

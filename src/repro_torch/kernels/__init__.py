@@ -2,15 +2,15 @@
 PyTorch versions.
 
 ``bindjoin``  -- server-side bindings-restricted filter (Definition 1),
-                 grouped and fused (``csrc/bindjoin.cu``)
+                 ungrouped, grouped and fused (``csrc/bindjoin.cu``)
 ``tpf_match`` -- single-triple-pattern matcher (``csrc/tpf_match.cu``)
 
 ``ref.py`` holds the plain oracles, ``build.py`` compiles and loads the
 CUDA sources at first use, and ``ops.py`` the padded public entry points
 (a CUDA tensor launches the kernel, a CPU tensor runs the plain version).
 """
-from .ops import (bindjoin_fused, bindjoin_grouped, compact_mask,
+from .ops import (bindjoin, bindjoin_fused, bindjoin_grouped, compact_mask,
                   pattern_vec_from, tpf_match)
 
-__all__ = ["bindjoin_fused", "bindjoin_grouped", "compact_mask",
+__all__ = ["bindjoin", "bindjoin_fused", "bindjoin_grouped", "compact_mask",
            "pattern_vec_from", "tpf_match"]

@@ -1,14 +1,18 @@
-"""Grouped and fused bind-join filters (the brTPF server's hot spot).
+"""Ungrouped, grouped and fused bind-join filters (the brTPF server's hot
+spot).
 
 The hand-written CUDA kernels are in ``csrc/bindjoin.cu``. They replace
-the TPU kernels ``repro/kernels/bindjoin.py:bindjoin_grouped_pallas``
-and ``:bindjoin_fused_pallas``. For every candidate row and request group
-g they compute ``keep`` (the row matches a valid slot of g), ``idx``
-(the smallest matching slot, or Mp when none) and ``nmatch`` (the number
-of matching valid slots: the row's share of the Definition-2 ``cnt``),
-each int32 ``[T, G]``.
+the TPU kernels ``repro/kernels/bindjoin.py:bindjoin_pallas``,
+``:bindjoin_grouped_pallas`` and ``:bindjoin_fused_pallas``. For every
+candidate row and request group g the grouped and fused kernels compute
+``keep`` (the row matches a valid slot of g), ``idx`` (the smallest
+matching slot, or Mp when none) and ``nmatch`` (the number of matching
+valid slots: the row's share of the Definition-2 ``cnt``), each int32
+``[T, G]``. The ungrouped kernel (the sharded backend's full-shard
+stream) computes ``keep`` and ``idx`` int32 ``[T]`` against one slot set,
+with ``idx`` = the padded M where no slot matches.
 
-On the card both are bound by integer operations: every (row, slot)
+On the card all three are bound by integer operations: every (row, slot)
 cell costs a few compares while the candidate and output bytes are
 touched once. One thread per row keeps any / min / count in registers
 while the block stages its group's slots through shared memory tile by
@@ -21,6 +25,8 @@ tensor takes the ``*_plain`` version. There is no fallback: a CUDA launch
 that fails raises.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -49,6 +55,16 @@ def _row_chunks(t: int, cells_per_row: int):
 
 def _int32_outputs(keep, idx, nmatch):
     return keep.to(torch.int32), idx, nmatch
+
+
+def bindjoin_plain(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o, pat_valid):
+    """Plain PyTorch version of the ungrouped kernel, same flat inputs
+    (``pat_*`` int32 ``[M]``) and int32 ``[T]`` outputs (keep, idx)."""
+    parts = [(keep.to(torch.int32), idx) for keep, idx in (
+        ref.bindjoin_ref(cand_s[lo:hi], cand_p[lo:hi], cand_o[lo:hi],
+                         pat_s, pat_p, pat_o, pat_valid)
+        for lo, hi in _row_chunks(cand_s.shape[0], pat_s.shape[0]))]
+    return tuple(torch.cat(xs) for xs in zip(*parts, strict=True))
 
 
 def bindjoin_grouped_plain(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o,
@@ -99,6 +115,40 @@ def _outputs(t: int, groups: int, device):
                  for _ in range(3))
 
 
+def bindjoin_cuda(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o, pat_valid):
+    """Ungrouped bind-join filter: one candidate pass, one slot set.
+
+    Candidates are int32 ``[T]`` components; pattern inputs are int32
+    ``[M]`` slots (M padded by the caller). Returns (keep, idx) int32
+    ``[T]`` with ``idx == M`` where a row matches no slot.
+    """
+    if cand_s.device.type == "cpu":
+        return bindjoin_plain(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o,
+                              pat_valid)
+    if cand_s.device.type != "cuda":
+        raise ValueError(f"bindjoin: unsupported device {cand_s.device}")
+    m = pat_s.shape[0]
+    device = _check_inputs((cand_s, cand_p, cand_o),
+                           (pat_s, pat_p, pat_o, pat_valid), m)
+    t = cand_s.shape[0]
+    keep, idx = (torch.empty((t,), dtype=torch.int32, device=device)
+                 for _ in range(2))
+    lib = build.library("bindjoin")
+    err = lib.brtpf_bindjoin(
+        cand_s.data_ptr(), cand_p.data_ptr(), cand_o.data_ptr(),
+        pat_s.data_ptr(), pat_p.data_ptr(), pat_o.data_ptr(),
+        pat_valid.data_ptr(), keep.data_ptr(), idx.data_ptr(), t, m,
+        torch.cuda.current_stream(device).cuda_stream)
+    build.check(err, "bindjoin")
+    bindjoin_cuda.launches += 1
+    bindjoin_cuda.shapes[(t, m)] += 1
+    return keep, idx
+
+
+bindjoin_cuda.launches = 0
+bindjoin_cuda.shapes = Counter()
+
+
 def bindjoin_grouped_cuda(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o,
                           pat_valid, *, groups: int):
     """Grouped bind-join filter: one candidate pass, G pattern sets.
@@ -130,10 +180,12 @@ def bindjoin_grouped_cuda(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o,
         torch.cuda.current_stream(device).cuda_stream)
     build.check(err, "bindjoin_grouped")
     bindjoin_grouped_cuda.launches += 1
+    bindjoin_grouped_cuda.shapes[(t, groups, gm // groups)] += 1
     return keep, idx, nmatch
 
 
 bindjoin_grouped_cuda.launches = 0
+bindjoin_grouped_cuda.shapes = Counter()
 
 
 def bindjoin_fused_cuda(seg_of_tile, cand_s, cand_p, cand_o, pat_s, pat_p,
@@ -181,7 +233,10 @@ def bindjoin_fused_cuda(seg_of_tile, cand_s, cand_p, cand_o, pat_s, pat_p,
         torch.cuda.current_stream(device).cuda_stream)
     build.check(err, "bindjoin_fused")
     bindjoin_fused_cuda.launches += 1
+    bindjoin_fused_cuda.shapes[
+        (t, segments, groups, sgm // (segments * groups))] += 1
     return keep, idx, nmatch
 
 
 bindjoin_fused_cuda.launches = 0
+bindjoin_fused_cuda.shapes = Counter()

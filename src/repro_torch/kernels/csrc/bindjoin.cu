@@ -1,15 +1,24 @@
-// Grouped and fused bind-join filters (the brTPF server's hot spot).
+// Ungrouped, grouped and fused bind-join filters (the brTPF server's hot
+// spot).
 //
 // Replace the TPU kernels repro/kernels/bindjoin.py:
+//   bindjoin_pallas         (body _bindjoin_kernel)
 //   bindjoin_grouped_pallas (body _bindjoin_grouped_kernel)
 //   bindjoin_fused_pallas   (body _bindjoin_fused_kernel)
 //
-// Both compute, for every candidate row and request group g:
+// The grouped and fused kernels compute, for every candidate row and
+// request group g:
 //   keep[row, g]   -- the row matches at least one valid slot of group g
 //   idx[row, g]    -- the smallest matching slot, or Mp when none
 //   nmatch[row, g] -- how many valid slots of group g the row matches
 // A slot component < 0 is a wildcard; a slot with valid == 0 is padding.
 // Outputs are int32 [T, G], row-major: the reference layout.
+//
+// The ungrouped kernel (the sharded backend's full-shard stream) is the
+// same filter over one slot set of M (padded) slots, and writes only
+// keep[T] and idx[T], with idx == M when no slot matches; it computes no
+// count. Its grid is ceil(T / 256) blocks: at a full shard stream
+// (T ~ 9.25M rows) that is about 36k blocks, enough to fill the card.
 //
 // Design: grid (ceil(T / 256), G), 256 threads, one thread per row. The
 // block stages its group's slots through shared memory kSlotTile at a
@@ -43,7 +52,9 @@ namespace {
 constexpr int kThreads = 256;   // rows per block == fused segment tile
 constexpr int kSlotTile = 256;  // slots staged per shared-memory tile
 
-// Match one row (a, b, c) against slots [0, mp) of one group.
+// Match one row (a, b, c) against slots [0, mp) of one group. With
+// kCount false the count is not kept (the ungrouped kernel needs none).
+template <bool kCount>
 __device__ __forceinline__ void match_group(
     int a, int b, int c, const int* __restrict__ ps,
     const int* __restrict__ pp, const int* __restrict__ po,
@@ -62,13 +73,38 @@ __device__ __forceinline__ void match_group(
       const int4 q = tile[k];
       const bool m = q.w != 0 && (q.x < 0 || q.x == a)
                      && (q.y < 0 || q.y == b) && (q.z < 0 || q.z == c);
-      count += m ? 1 : 0;
+      if (kCount) count += m ? 1 : 0;
       first = min(first, m ? base + k : mp);
     }
     __syncthreads();
   }
   *first_out = first;
   *count_out = count;
+}
+
+__global__ void bindjoin_kernel(
+    const int* __restrict__ cs, const int* __restrict__ cp,
+    const int* __restrict__ co, const int* __restrict__ ps,
+    const int* __restrict__ pp, const int* __restrict__ po,
+    const int* __restrict__ pv, int* __restrict__ keep,
+    int* __restrict__ idx, long long t, int mp) {
+  __shared__ int4 tile[kSlotTile];
+  const long long row = static_cast<long long>(blockIdx.x) * kThreads
+                        + threadIdx.x;
+  const bool live = row < t;
+  // Rows past the end still take part in the block's barriers.
+  int a = 0, b = 0, c = 0;
+  if (live) {
+    a = cs[row];
+    b = cp[row];
+    c = co[row];
+  }
+  int first, count;
+  match_group<false>(a, b, c, ps, pp, po, pv, mp, tile, &first, &count);
+  if (live) {
+    keep[row] = first < mp ? 1 : 0;
+    idx[row] = first;
+  }
 }
 
 __global__ void bindjoin_grouped_kernel(
@@ -92,8 +128,8 @@ __global__ void bindjoin_grouped_kernel(
   }
   const long long off = static_cast<long long>(g) * mp;
   int first, count;
-  match_group(a, b, c, ps + off, pp + off, po + off, pv + off, mp, tile,
-              &first, &count);
+  match_group<true>(a, b, c, ps + off, pp + off, po + off, pv + off, mp,
+                    tile, &first, &count);
   if (live) {
     const long long out = row * groups + g;
     keep[out] = count > 0 ? 1 : 0;
@@ -124,8 +160,8 @@ __global__ void bindjoin_fused_kernel(
       c = co[row];
     }
     const long long off = (static_cast<long long>(seg) * groups + g) * mp;
-    match_group(a, b, c, ps + off, pp + off, po + off, pv + off, mp, tile,
-                &first, &count);
+    match_group<true>(a, b, c, ps + off, pp + off, po + off, pv + off, mp,
+                      tile, &first, &count);
   }
   if (live) {
     const long long out = row * groups + g;
@@ -136,6 +172,21 @@ __global__ void bindjoin_fused_kernel(
 }
 
 }  // namespace
+
+extern "C" int brtpf_bindjoin(
+    const void* cs, const void* cp, const void* co, const void* ps,
+    const void* pp, const void* po, const void* pv, void* keep, void* idx,
+    long long t, int mp, void* stream) {
+  if (t <= 0) return 0;
+  const dim3 grid(static_cast<unsigned int>((t + kThreads - 1) / kThreads));
+  bindjoin_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(cs), static_cast<const int*>(cp),
+      static_cast<const int*>(co), static_cast<const int*>(ps),
+      static_cast<const int*>(pp), static_cast<const int*>(po),
+      static_cast<const int*>(pv), static_cast<int*>(keep),
+      static_cast<int*>(idx), t, mp);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int brtpf_bindjoin_grouped(
     const void* cs, const void* cp, const void* co, const void* ps,

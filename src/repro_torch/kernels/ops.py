@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from .bindjoin import (DEFAULT_BM, DEFAULT_BT, DEFAULT_FUSED_BT,
-                       bindjoin_fused_cuda, bindjoin_grouped_cuda)
+                       bindjoin_cuda, bindjoin_fused_cuda,
+                       bindjoin_grouped_cuda)
 from .tpf_match import tpf_match_cuda
 
 # The reference pads the single-pattern matcher's candidates to whole
@@ -45,6 +46,28 @@ def _pad_to(x: torch.Tensor, mult: int, fill: int) -> torch.Tensor:
     pad = max(rem, mult if n == 0 else rem)
     return torch.cat([x, torch.full((pad,), fill, dtype=x.dtype,
                                     device=x.device)])
+
+
+def bindjoin(cand: torch.Tensor, patterns: torch.Tensor,
+             pat_valid: torch.Tensor, *, bt: int = DEFAULT_BT,
+             bm: int = DEFAULT_BM) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bind-join filter over candidate triples.
+
+    Args:
+      cand: int32 [T, 3] candidate data triples.
+      patterns: int32 [M, 3] instantiated patterns (component < 0 = wild).
+      pat_valid: int32 [M] (0 marks padding rows).
+
+    Returns:
+      keep: bool [T]  -- triple joins with >= 1 attached mapping.
+      idx:  int32 [T] -- first matching pattern index (= padded M if none).
+    """
+    t = cand.shape[0]
+    cs, cp, co = (_pad_to(cand[:, i], bt, 0) for i in range(3))
+    ps, pp, po = (_pad_to(patterns[:, i], bm, 0) for i in range(3))
+    pv = _pad_to(pat_valid.to(torch.int32), bm, 0)
+    keep, idx = bindjoin_cuda(cs, cp, co, ps, pp, po, pv)
+    return keep[:t].bool(), idx[:t]
 
 
 def padded_pattern_slots(m: int, bm: int = DEFAULT_BM) -> int:

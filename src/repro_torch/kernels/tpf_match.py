@@ -7,11 +7,14 @@ operations), so it is one coalesced pass, one thread per row, that masks
 its own ragged edge.
 
 :func:`tpf_match_cuda` dispatches on the tensor's device: a CUDA tensor
-launches the kernel (and counts the launch in ``tpf_match_cuda.launches``),
-a CPU tensor takes :func:`tpf_match_plain`. There is no fallback: a
+launches the kernel (and counts the launch in ``tpf_match_cuda.launches``,
+and its row count T in the ``tpf_match_cuda.shapes`` tally), a CPU tensor
+takes :func:`tpf_match_plain`. There is no fallback: a
 CUDA launch that fails raises.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -55,7 +58,9 @@ def tpf_match_cuda(cand_s: torch.Tensor, cand_p: torch.Tensor,
         torch.cuda.current_stream(cand_s.device).cuda_stream)
     build.check(err, "tpf_match")
     tpf_match_cuda.launches += 1
+    tpf_match_cuda.shapes[(t,)] += 1
     return mask
 
 
 tpf_match_cuda.launches = 0
+tpf_match_cuda.shapes = Counter()

@@ -9,12 +9,16 @@ Run them on the card with
 The file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed. Outputs are integers: equality is exact.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import bindjoin as tbindjoin
 from repro_torch.kernels.tpf_match import tpf_match_cuda, tpf_match_plain
+
+# the package re-exports the bindjoin op under the module's name
+tbindjoin = importlib.import_module("repro_torch.kernels.bindjoin")
 
 
 def rand_triples(rng, t, terms=6):
@@ -85,3 +89,130 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         for w, o in zip(want, got, strict=True):
             assert torch.equal(w, o)
+
+    @pytest.mark.parametrize("t", [1, 1023, 4096, 1 << 20])
+    @pytest.mark.parametrize("m", [128, 256])
+    def test_bindjoin(self, cuda_device, t, m):
+        rng = np.random.default_rng(t + m)
+        triples = rand_triples(rng, t)
+        pats = rand_patterns(rng, (m,))
+        # every slot binds its subject, and every 4th row's subject is in
+        # no slot: those rows match nothing (idx == m)
+        pats[:, 0] = rng.integers(0, 6, size=m)
+        triples[::4, 0] = 7
+        cand = [torch.as_tensor(c, device=cuda_device)
+                for c in triples.T.copy()]
+        flat = [torch.as_tensor(c, device=cuda_device)
+                for c in pats.T.copy()]
+        pv = torch.as_tensor((rng.random(m) < 0.3).astype(np.int32),
+                             device=cuda_device)
+        got = tbindjoin.bindjoin_cuda(*cand, *flat, pv)
+        want = tbindjoin.bindjoin_plain(*cand, *flat, pv)
+        torch.cuda.synchronize()
+        for w, o in zip(want, got, strict=True):
+            assert torch.equal(w, o)
+        assert bool((got[1] == m).any())
+        if t > 1:
+            assert bool((got[0] == 1).any())
+
+
+@pytest.mark.cuda
+def test_sharded_selector_on_card_equals_cpu(cuda_device):
+    """Four logical shards on the card against the same on the CPU:
+    fragments, cnt, LaunchRecords and per-shard counters."""
+    import dataclasses
+
+    from repro_torch.core import TriplePattern, encode_var
+    from repro_torch.core.federation import FederatedStore, ShardedSelector
+    from repro_torch.core.kernel_selectors import FusedSegment
+
+    v = encode_var
+    rng = np.random.default_rng(7)
+    arr = np.unique(rng.integers(0, 15, size=(900, 3)).astype(np.int32),
+                    axis=0)
+    om = rng.integers(0, 15, size=(6, 2)).astype(np.int32)
+
+    def run(device):
+        sel = ShardedSelector(FederatedStore.build(arr, 4, device=device),
+                              window=32)
+        out = [sel.select_with_cnt(TriplePattern(v(0), 3, v(1)), o)
+               for o in (None, om)]
+        out += sel.select_same_pattern(TriplePattern(v(0), v(1), v(2)),
+                                       [None, om[:, :1]])
+        out.append((np.empty((0, 3), np.int32), sel.select_count(
+            TriplePattern(v(0), 2, v(0)), None)))
+        out += [r for row in sel.select_fused([
+            FusedSegment(TriplePattern(v(0), 4, v(1)), [om]),
+            FusedSegment(TriplePattern(v(0), 5, v(1)), [None])])
+            for r in row]
+        full = sel.fed.execute_full(TriplePattern(v(0), 3, v(1)), om, 30,
+                                    256)
+        return ([(d.tobytes(), d.shape, c) for d, c in out],
+                [dataclasses.asdict(r) for r in sel.launches],
+                sel.shard_balance(), full.tobytes())
+
+    assert run(cuda_device) == run("cpu")
+
+
+
+@pytest.mark.cuda
+def test_routed_replica_placement_on_card_equals_cpu(cuda_device):
+    """Four logical shards under a manual placement with a replica range
+    (the routed step: replica spans subtracted from non-owners, each
+    replicated span served by its least-loaded holder), on the card
+    against the same on the CPU: fragments, LaunchRecords, per-shard
+    pages and balance."""
+    import dataclasses
+
+    from repro_torch import core
+    from repro_torch.core.federation import FederatedStore
+    from repro_torch.core.placement import (Placement, ReplicaRange,
+                                            dataset_keys)
+
+    v = core.encode_var
+    n_subj, per_subj = 64, 8
+    s = np.repeat(np.arange(n_subj), per_subj) + 100
+    p = np.tile(np.arange(per_subj), n_subj) % 4 + 1
+    o = np.arange(s.size) + 10_000
+    store = core.TripleStore(np.stack([s, p, o], axis=1).astype(np.int32))
+    keys = dataset_keys(store.triples)["spo"]
+    n = keys.size
+    manual = Placement(
+        boundaries={"spo": np.array([keys[n // 2], keys[5 * n // 8],
+                                     keys[6 * n // 8]], dtype=np.int64)},
+        replicas={"spo": (ReplicaRange(
+            "spo", int(keys[10 * per_subj]), int(keys[12 * per_subj - 1]),
+            home=0, replicas=(2,)),)})
+    om = np.array([[2, -1], [3, -1]], np.int32)
+    hot = [core.Request(core.TriplePattern(100 + subj, v(0), v(1)),
+                        np.roll(om, k, axis=0), page=0)
+           for subj in (10, 11) for k in (0, 1)]
+    cold = [core.Request(core.TriplePattern(100 + subj, v(0), v(1)), om, 0)
+            for subj in (5, 40, 60)]
+    wide = [core.Request(core.TriplePattern(v(0), 2, v(1)), None, pg)
+            for pg in range(3)]
+    batch = [core.Request(core.TriplePattern(110, v(0), v(1)), om[:1], 0),
+             core.Request(core.TriplePattern(v(0), 3, v(1)), None, 0),
+             core.Request(core.TriplePattern(111, v(0), v(1)), om, 0)]
+
+    def run(device):
+        srv = core.BrTPFServer(store, core.ServerConfig(
+            selector_backend="sharded", shards=4, shard_window=16,
+            device=device))
+        placed = FederatedStore.build(store.triples, 4, device=device,
+                                      placement=manual)
+        srv.federated = placed
+        srv._selector.rebind(placed)
+        srv.fragments.clear()
+        frags = [srv.handle(r) for r in hot * 3 + cold + wide]
+        frags += srv.handle_batch(batch)
+        return ([(f.data.tobytes(), f.data.shape, f.cnt, f.has_next)
+                 for f in frags],
+                [dataclasses.asdict(r) for r in srv._selector.launches],
+                srv.shard_launch_snapshot().tolist(),
+                srv.metrics_snapshot()["shards"])
+
+    got = run(cuda_device)
+    assert got == run("cpu")
+    # the replicated block was charged to both of its holders {0, 2}
+    assert got[2][0] > 0 and got[2][2] > 0

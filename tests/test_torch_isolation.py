@@ -89,6 +89,13 @@ def test_entry_points_default_to_cuda():
         KernelSelector(store)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BrTPFServer(store, ServerConfig(selector_backend="kernel"))
+    from repro_torch.core.federation import FederatedStore
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BrTPFServer(store, ServerConfig(selector_backend="sharded"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FederatedStore.build(store.triples, 4, device=None)
+    assert FederatedStore.build(store.triples, 4,
+                                device="cpu").device.type == "cpu"
     assert KernelSelector(store, device="cpu").device.type == "cpu"
     # the numpy oracle needs no device
     assert BrTPFServer(store, ServerConfig())._selector is None

@@ -8,6 +8,8 @@ tolerance is exact equality, padding rows included.
 ``tests/test_torch_cuda.py`` holds the hand-written CUDA kernels'
 checks against these plain versions on the card.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,10 +17,12 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import bindjoin as tbindjoin
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.tpf_match import tpf_match_cuda
+
+# the package re-exports the bindjoin op under the module's name
+tbindjoin = importlib.import_module("repro_torch.kernels.bindjoin")
 
 pytestmark = pytest.mark.tier1
 
