@@ -17,7 +17,9 @@ printing its own lines:
 3. kernels: each hand-written kernel against its plain PyTorch version
    on random inputs at the largest shape the main paths give it, exact
    equality, with the kernel's and the plain version's times and the
-   card's bound for the same work;
+   card's bound for the same work; the grouped kernel also at one
+   4 x 1024-row window, the shape the earlier design launched it (and
+   tpf_match) at once per page;
 4. slice: a WatDiv-like store at 600x the default scale (about 9.25M
    triples, the paper's 10M-triple WatDiv cut only to keep term ids
    under the store's 21-bit packing limit), 8 queries of the L, S, F
@@ -32,7 +34,11 @@ printing its own lines:
    ``repartition()`` from the heat log (the routed step); then
    ``execute_full`` (the ungrouped bind-join over every shard's whole
    partition) on each query's first two triple patterns. Everything
-   must equal the numpy backend or the host selector;
+   must equal the numpy backend or the host selector, and a sequential
+   run must make at most one grouped launch per chunk of pages and no
+   tpf_match launch. The sequential runs of phases 4 and 5 report wall
+   ms per LaunchRecord, and both backends CUDA launches per
+   LaunchRecord;
 6. path kernels: each kernel against its plain version again, at the
    launch geometries each of phases 4 and 5 gave it most (the wrappers'
    ``shapes`` tallies), with times and bounds beside that path's
@@ -68,12 +74,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 # Work per (row, slot) cell of a bind-join: 3 component compares, 2 ANDs,
 # 1 add into the count, 1 min into the first index (wildcard and valid
-# flags are per slot, not per cell).
+# flags are per slot, not per cell). The grouped kernel's cells are
+# those of its live slots on the rows that pass its prologue.
 OPS_PER_CELL = 7
 # The ungrouped bind-join keeps no count: 6 operations per cell.
 OPS_PER_CELL_UNGROUPED = 6
-# Work per row of the single-pattern matcher: 3 component compares and
-# 3 repeated-variable compares.
+# Work per row of the single-pattern matcher, and of the grouped
+# kernel's prologue: 3 component compares and 3 repeated-variable
+# compares.
 OPS_PER_ROW = 6
 
 SCALE_FACTOR = 600
@@ -145,16 +153,32 @@ def max_abs_err(torch, got, want) -> int:
     return max(errs)
 
 
+def live_bounds(slots):
+    """Per group, one past its last slot with valid != 0 (host ints)."""
+    valid = (slots[..., 3] != 0).cpu().numpy()
+    return [int(np.flatnonzero(v)[-1]) + 1 if v.any() else 0 for v in valid]
+
+
 def kernel_case(torch, bj, tm, gen, name, shape, shards=0):
     """Random inputs for kernel ``name`` at launch geometry ``shape``
     (the key of the wrapper's ``shapes`` tally: ``(T,)``, ``(T, M)``,
-    ``(T, G, Mp)`` or ``(T, S, G, Mp)``). Returns the wrapper call, the
-    plain version's call, the bytes and operations of the bound, and
-    facts about the inputs. A fused case with ``shards`` lays its
-    segments out as the sharded step does (each shard's S segments of
-    T / (shards * S) rows, every tile live); without, its tiles get
-    random segments or -1 (dead), as a kernel-backend stream has."""
+    ``(P, S, W, G, Mp, live)`` or ``(T, S, G, Mp)``). Returns the
+    wrapper call, the plain version's call, the view of an output that
+    the two must agree on, the bytes of the bound (or a function of the
+    plain output giving them), its operations, and facts about the
+    inputs. A fused case with ``shards`` lays its segments out as the
+    sharded step does (each shard's S segments of T / (shards * S) rows,
+    every tile live); without, its tiles get random segments or -1
+    (dead), as a kernel-backend stream has. A grouped case reads S
+    shards of P full pages of W rows, every row of its span (the window
+    lies in the pattern's range, so every valid row passes the base
+    test), against slot tables made as ``marshal_pattern_grid`` makes
+    them: each group a live prefix (the first group ``live`` slots, the
+    others fewer), then padding."""
     dev = "cuda"
+
+    def same(out):
+        return out
 
     def randint(lo, hi, n):
         return torch.randint(lo, hi, (n,), generator=gen, device=dev,
@@ -169,29 +193,63 @@ def kernel_case(torch, bj, tm, gen, name, shape, shards=0):
         out.append((randint(0, 10, n) < 8).to(torch.int32))
         return out
 
-    t = shape[0]
     if name == "tpf_match":
-        cand = [randint(0, 4, t) for _ in range(3)]
+        t = shape[0]
+        cand = torch.stack([randint(0, 4, t) for _ in range(3)], dim=1)
         pv = torch.tensor([-1, 2, -1, 0, 1, 0, 0, 0], dtype=torch.int32,
                           device=dev)
-        return (lambda: [tm.tpf_match_cuda(*cand, pv)],
-                lambda: [tm.tpf_match_plain(*cand, pv)],
-                16 * t + 32, OPS_PER_ROW * t, {})
+        return (lambda: [tm.tpf_match_cuda(cand, pv)],
+                lambda: [tm.tpf_match_plain(cand, pv)], same,
+                13 * t + 32, OPS_PER_ROW * t, {})
+    if name == "bindjoin_grouped":
+        p, s, w, g, mp, live = shape
+        n = p * w
+        pred = torch.full((s * n,), 7, dtype=torch.int32, device=dev)
+        triples = torch.stack([randint(0, 64, s * n), pred,
+                               randint(0, 64, s * n)], dim=1) \
+            .reshape(s, n, 3)
+        valid = (randint(0, 10, s * n) < 9).reshape(s, n)
+        base = torch.tensor([-1, 7, -1, 0, 0, 0, 0, 0], dtype=torch.int32,
+                            device=dev)
+        sl, sp, so, _ = slots(g * mp, 64)
+        table = torch.stack([sl, torch.where(sp < 0, sp, 7), so,
+                             torch.zeros_like(sl)], dim=1).reshape(g, mp, 4)
+        fill = np.random.default_rng(g * mp + live).integers(
+            1, live + 1, size=g) if live else np.zeros(g, int)
+        fill[0] = live
+        for gi in range(g):
+            table[gi, :int(fill[gi]), 3] = 1
+        lo = torch.arange(p, device=dev, dtype=torch.int64)[:, None] * w
+        spans = torch.stack([lo.expand(p, s), (lo + w).expand(p, s)],
+                            dim=-1).contiguous()
+        args = (triples, valid, table, base)
+        kw = dict(spans=spans, width=w, live=live)
+        rows = p * s * w
+        rows_ok = int(valid.sum())          # every span is a full page
+        live_cells = sum(live_bounds(table))
+
+        def view(out):
+            mask, first, cnt, _ = out
+            return [mask, cnt, torch.where(mask.bool(), first, -1)]
+
+        def nbytes(want):
+            return (13 * rows + rows * g + 4 * int(want[0].sum())
+                    + 8 * p * s * g + 16 * live_cells + 16 * p * s + 32)
+
+        return (lambda: bj.bindjoin_grouped_cuda(*args, **kw),
+                lambda: bj.bindjoin_grouped_plain(*args, **kw), view,
+                nbytes, OPS_PER_ROW * rows
+                + OPS_PER_CELL * rows_ok * live_cells,
+                dict(rows_ok=rows_ok, live_cells=live_cells))
+    t = shape[0]
     cand = [randint(0, 64, t) for _ in range(3)]
     if name == "bindjoin":
         m = shape[1]
         pats = slots(m, 64)
         pats[3][MAX_MPR:] = 0          # maxMpR valid slots, then padding
         return (lambda: bj.bindjoin_cuda(*cand, *pats),
-                lambda: bj.bindjoin_plain(*cand, *pats),
+                lambda: bj.bindjoin_plain(*cand, *pats), same,
                 20 * t + 16 * m, OPS_PER_CELL_UNGROUPED * t * m, {})
-    if name == "bindjoin_grouped":
-        g, mp = shape[1:]
-        pats = slots(g * mp, 64)
-        return (lambda: bj.bindjoin_grouped_cuda(*cand, *pats, groups=g),
-                lambda: bj.bindjoin_grouped_plain(*cand, *pats, groups=g),
-                12 * t + 16 * g * mp + 12 * t * g,
-                OPS_PER_CELL * t * g * mp, {})
     s, g, mp = shape[1:]
     tiles = t // 256
     if shards:
@@ -204,7 +262,7 @@ def kernel_case(torch, bj, tm, gen, name, shape, shards=0):
     return (lambda: bj.bindjoin_fused_cuda(seg, *cand, *pats, segments=s,
                                            groups=g),
             lambda: bj.bindjoin_fused_plain(seg, *cand, *pats, segments=s,
-                                            groups=g),
+                                            groups=g), same,
             12 * t + 4 * tiles + 16 * s * g * mp + 12 * t * g,
             OPS_PER_CELL * live_rows * g * mp, dict(live_rows=live_rows))
 
@@ -212,14 +270,14 @@ def kernel_case(torch, bj, tm, gen, name, shape, shards=0):
 def measure(torch, bj, tm, gen, name, shape, shards=0):
     """One kernel case: exact agreement with the plain version, the
     kernel's and the plain version's device ms, and the bound."""
-    fn, plain_fn, nbytes, ops, facts = kernel_case(
+    fn, plain_fn, view, nbytes, ops, facts = kernel_case(
         torch, bj, tm, gen, name, shape, shards)
-    got, want = fn(), plain_fn()
+    got, want = view(fn()), view(plain_fn())
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
     ms = time_ms(torch, fn, 20)
     plain = time_ms(torch, plain_fn, 3)
-    b, by = bound_ms(nbytes, ops)
+    b, by = bound_ms(nbytes(want) if callable(nbytes) else nbytes, ops)
     r = dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain,
              bound_ms=b, bound_by=by, kept=int(want[0].sum()), **facts)
     log(f"kernel {name}: shape {list(shape)}"
@@ -236,14 +294,18 @@ def measure(torch, bj, tm, gen, name, shape, shards=0):
 def check_kernels(torch, bj, tm, t_full: int):
     """Phase 3: each kernel against its plain version at the largest
     shape a main path gives it (``t_full``: the sharded store's rows,
-    shards x shard_n, which execute_full streams at once)."""
+    shards x shard_n, which execute_full streams at once). Returns those
+    rows, and the grouped kernel at the single-window shape of the
+    earlier design, which launched it (and tpf_match) once per page."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return {
-        # tpf_match at the _bucket of the ~2.4M-row `?u likes ?p` range
-        "tpf_match": measure(torch, bj, tm, gen, "tpf_match", (4_194_304,)),
-        # bindjoin_grouped at the same T, G = 8 groups of Mp = 128 slots
+    kernels = {
+        # tpf_match at execute_full's shape (the only path launching it)
+        "tpf_match": measure(torch, bj, tm, gen, "tpf_match", (t_full,)),
+        # bindjoin_grouped at the chunk cap (federation.MAX_CHUNK_ROWS):
+        # 1024 pages x 4 shards x 1024 rows, G = 8 groups of Mp = 128
+        # slots, maxMpR = 30 of them live
         "bindjoin_grouped": measure(torch, bj, tm, gen, "bindjoin_grouped",
-                                    (4_194_304, 8, 128)),
+                                    (1024, SHARDS, 1024, 8, 128, MAX_MPR)),
         # bindjoin_fused at the MAX_FUSED_* ceilings: 131072 rows, 16
         # segments x 2 groups x 1024 slots = 32768 slots
         "bindjoin_fused": measure(torch, bj, tm, gen, "bindjoin_fused",
@@ -254,6 +316,10 @@ def check_kernels(torch, bj, tm, t_full: int):
         "bindjoin": measure(torch, bj, tm, gen, "bindjoin",
                             (-(-t_full // 1024) * 1024, 128)),
     }
+    # one window of 4 shards x 1024 rows, G = 1, Mp = 128, one live slot
+    single = measure(torch, bj, tm, gen, "bindjoin_grouped",
+                     (1, SHARDS, 1024, 1, 128, 1))
+    return kernels, single
 
 
 def check_path_geometries(torch, bj, tm, shapes_per_path):
@@ -418,6 +484,7 @@ def run_slice(torch, core, data, queries, counts, reset_counts):
     torch.cuda.synchronize()
     details["sync_kernel_s"] = time.perf_counter() - t0
     sync_counts = counts("kernel backend")
+    sync_records = len(kserver._selector.launches)
     t0 = time.perf_counter()
     nres = [core.BrTPFClient(nserver, request_budget=REQUEST_BUDGET)
             .execute(b) for _, b in queries]
@@ -430,14 +497,17 @@ def run_slice(torch, core, data, queries, counts, reset_counts):
         per_query.append(dict(query=name, solutions=int(k.solutions.shape[0]),
                               requests=k.num_requests,
                               timed_out=k.timed_out))
+    host_ms = 1e3 * details["sync_kernel_s"] / max(sync_records, 1)
     details["sync"] = dict(queries=per_query,
                            requests=kserver.counters.num_requests,
                            counters=dataclasses.asdict(kserver.counters),
-                           launches=sync_counts)
+                           launches=sync_counts, launch_records=sync_records,
+                           ms_per_launch_record=host_ms)
     log(f"slice sync: {kserver.counters.num_requests} requests, kernel "
         f"{details['sync_kernel_s']:.1f}s, numpy "
         f"{details['sync_numpy_s']:.1f}s, solutions equal; launches "
-        f"{sync_counts}")
+        f"{sync_counts}; {sync_records} LaunchRecords, {host_ms:.3f} ms "
+        "of wall time per LaunchRecord")
 
     # Concurrent async clients over the batching front end: every
     # heterogeneous window goes through the fused kernel.
@@ -463,6 +533,7 @@ def run_slice(torch, core, data, queries, counts, reset_counts):
     details["requests"] = kserver.counters.num_requests + len(front.log)
     details["launches"] = {k: sync_counts[k] + async_counts[k]
                            for k in sync_counts}
+    details["launch_records"] = sync_records + len(aserver._selector.launches)
 
     # Not part of the counted main path: the sequential client once
     # more, on a fresh kernel server, under the profiler.
@@ -552,6 +623,7 @@ def run_sharded(torch, core, data, queries, nres, counts, reset_counts):
     def sequential(label, srv):
         sel = srv._selector
         n0 = len(sel.launches)
+        c0 = sel.grouped_chunks
         reset_counts()
         t0 = time.perf_counter()
         res = [core.BrTPFClient(srv, request_budget=REQUEST_BUDGET)
@@ -563,13 +635,23 @@ def run_sharded(torch, core, data, queries, nres, counts, reset_counts):
             if not same_solutions(r, n):
                 raise SmokeFailure(f"sharded {label} query {name}: differs "
                                    "from the numpy backend")
+        chunks = sel.grouped_chunks - c0
+        if launched["bindjoin_grouped"] > chunks or launched["tpf_match"]:
+            raise SmokeFailure(f"sharded {label}: {launched} for {chunks} "
+                               "chunks (at most one grouped launch per "
+                               "chunk, no tpf_match launch)")
+        records = len(sel.launches) - n0
         out = dict(seconds=secs, requests=srv.counters.num_requests,
-                   launch_records=len(sel.launches) - n0, launches=launched,
+                   launch_records=records, launches=launched,
+                   grouped_chunks=chunks,
+                   ms_per_launch_record=1e3 * secs / max(records, 1),
                    shards=srv.metrics_snapshot()["shards"])
         log(f"sharded {label}: {out['requests']} requests in {secs:.1f}s, "
-            f"{out['launch_records']} LaunchRecords, solutions and request "
-            f"counts equal the numpy backend's; launches {launched}; "
-            f"shard imbalance {out['shards']['imbalance']:.2f}")
+            f"{records} LaunchRecords in {chunks} chunks "
+            f"({out['ms_per_launch_record']:.3f} ms of wall time per "
+            "LaunchRecord), solutions and request counts equal the numpy "
+            f"backend's; launches {launched}; shard imbalance "
+            f"{out['shards']['imbalance']:.2f}")
         return out
 
     details["static"] = sequential("static", server)
@@ -659,10 +741,11 @@ def profile_sync(torch, core, store, cfg, queries):
                 top=[(name, us / 1e3) for name, us in top])
 
 
-# Which kernels each counted path must launch.
+# Which kernels each counted path must launch (the grouped paths run
+# tpf_match's test in the grouped kernel's prologue: no tpf_match launch).
 PATH_KERNELS = {
-    "kernel backend": ("tpf_match", "bindjoin_grouped", "bindjoin_fused"),
-    "sharded backend": ("tpf_match", "bindjoin_grouped", "bindjoin_fused"),
+    "kernel backend": ("bindjoin_grouped", "bindjoin_fused"),
+    "sharded backend": ("bindjoin_grouped", "bindjoin_fused"),
     "execute_full": ("tpf_match", "bindjoin"),
 }
 
@@ -706,8 +789,8 @@ def main() -> int:
     ends = {"build": time.perf_counter() - t_start}
     data, generate_s = generate_data(watdiv)
     ends["data"] = time.perf_counter() - t_start
-    kernels = check_kernels(torch, bj, tm,
-                            SHARDS * -(-len(data.store) // SHARDS))
+    kernels, single_window = check_kernels(
+        torch, bj, tm, SHARDS * -(-len(data.store) // SHARDS))
     ends["kernels"] = time.perf_counter() - t_start
 
     wrappers = {"tpf_match": tm.tpf_match_cuda,
@@ -753,6 +836,17 @@ def main() -> int:
         if missing:
             raise SmokeFailure(f"{missing} never launched on the {path} "
                                f"path: {per_path[path]}")
+        if "tpf_match" not in names and per_path[path]["tpf_match"]:
+            raise SmokeFailure(f"tpf_match launched on the {path} path: "
+                               f"{per_path[path]}")
+    records = {"kernel backend": details["launch_records"],
+               "sharded backend": sum(sharded[run]["launch_records"]
+                                      for run in ("static", "async",
+                                                  "routed"))}
+    for path, n in records.items():
+        log(f"{path}: CUDA launches per LaunchRecord "
+            + ", ".join(f"{k} {per_path[path][k] / max(n, 1):.4f}"
+                        for k in wrappers) + f" ({n} LaunchRecords)")
     launches = {k: sum(c[k] for c in per_path.values()) for k in wrappers}
     details["launches_per_path"] = per_path
     log(f"kernels launched on the main paths: {per_path}")
@@ -804,7 +898,8 @@ def main() -> int:
     line = {"kernels": entries}
 
     details.update(device=kind, nvidia_smi=smi, build_s=build_s,
-                   kernels=kernels, kernels_at_paths=at_paths,
+                   kernels=kernels, single_window=single_window,
+                   kernels_at_paths=at_paths,
                    total_s=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

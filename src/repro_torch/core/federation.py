@@ -5,12 +5,13 @@ that TPF-style interfaces compose into federations of servers. The JAX
 package lays the federation over a device mesh, one shard per device.
 Here every shard lives on ONE CUDA device: the mesh axis becomes a
 leading *logical shard axis* of every store tensor (``[shards, shard_n,
-...]``), the all-gather back to the client is the identity on that
-axis, and a step makes one launch per kernel covering all shards (their
-windows laid end to end as one candidate stream, since the bind-join and
-match kernels are independent per row). Every step returns the
-reference's post-all-gather shapes: ``(shards, G, W[, C])``,
-``(shards, G)`` and ``(shards,)``. Multiple GPUs are not used.
+...]``) and the all-gather back to the client is the identity on that
+axis. A grouped request makes one bind-join launch per chunk of its
+window pages, over every shard at once (:meth:`FederatedStore.grouped_step`:
+the kernel reads the shards' rows where they lie and runs the base
+pattern's match in its prologue); the full-shard and fused steps make
+one launch per kernel over all shards' rows laid end to end and return
+the reference's post-all-gather shapes. Multiple GPUs are not used.
 
 A request -- (triple pattern, attached mappings) -- is evaluated by
 every shard on its own partition: each shard binary-searches its sorted
@@ -39,8 +40,9 @@ from .kernel_selectors import (_EMPTY, FUSED_BT, FusedSegment,
                                LaunchRecord, _fused_base_mask,
                                consult_fragments, consult_segment,
                                finish_segment, fusion_legality,
-                               marshal_pattern_grid, record_fragments,
-                               select_block_numpy, stream_order)
+                               grouped_results, marshal_pattern_grid,
+                               record_fragments, select_block_numpy,
+                               stream_order)
 from .placement import HeatLog, Placement
 from .rdf import TriplePattern, is_var
 from .selectors import instantiate_patterns
@@ -52,6 +54,13 @@ from .store import _ORDERS, _pack
 # that the launch geometry (pages, LaunchRecords, budgets) equals the
 # reference's.
 DEFAULT_SHARD_WINDOW = 1024
+
+# Rows (pages x shards x window) that one grouped launch covers: the
+# kernel backend's largest candidate block (the 4,194,304-row bucket of
+# a frequent predicate's range), the shape chip_smoke.py times the
+# grouped kernel at. It bounds a chunk's outputs to 5 bytes per row and
+# group (the uint8 mask and the int32 first-match index).
+MAX_CHUNK_ROWS = 1 << 22
 
 _PAD_KEY = np.iinfo(np.int64).max
 
@@ -100,36 +109,6 @@ def _local_brtpf(cand: torch.Tensor, patterns: torch.Tensor,
     page = _shard_rows(cand, idx.clamp(min=0).long())
     page = torch.where((idx >= 0)[..., None], page, -1)
     return page, count
-
-
-def _grouped_epilogue(win: torch.Tensor, ok: torch.Tensor,
-                      pats: torch.Tensor, pat_valid: torch.Tensor,
-                      base_vec: torch.Tensor, capacity: int,
-                      wild_cols: tuple, bt: int = kops.DEFAULT_BT):
-    """The grouped windowed steps' body over every shard's window.
-
-    ``win`` int32 [shards, W, 3], ``ok`` bool [shards, W] (valid and
-    inside the owned span). One grouped bind-join launch and one match
-    launch over the shards' windows laid end to end, then per (shard,
-    group): compacted kept rows (projected to ``wild_cols``), their
-    first-matching-pattern index, the kept count and the Definition-2
-    ``cnt`` contribution. Shapes (S, G, capacity[, C]) / (S, G).
-    """
-    s, w = ok.shape
-    flat = win.reshape(s * w, 3)
-    keep, idx, nmatch = kops.bindjoin_grouped(flat, pats, pat_valid, bt=bt)
-    base = kops.tpf_match(flat, base_vec)
-    g = keep.shape[1]
-    mask = (keep & base[:, None] & ok.reshape(-1)[:, None]).reshape(s, w, g)
-    cnts = torch.where(mask, nmatch.reshape(s, w, g), 0).sum(dim=1)
-    rows, counts = kops.compact_mask(mask.transpose(1, 2), capacity)
-    safe = rows.clamp(min=0).long()                       # (S, G, cap)
-    page = _shard_rows(win, safe)[..., list(wild_cols)]
-    first = torch.gather(idx.reshape(s, w, g).transpose(1, 2), 2, safe)
-    live = rows >= 0
-    page = torch.where(live[..., None], page, -1)
-    first = torch.where(live, first, -1)
-    return page, first, counts, cnts
 
 
 @dataclasses.dataclass
@@ -603,118 +582,43 @@ class FederatedStore:
 
         return step
 
-    def lowerable_windowed_grouped(self, window: int, groups: int,
-                                   wild_cols: tuple = (0, 1, 2)):
-        """Grouped windowed step: G same-pattern requests, one launch.
+    def grouped_step(self, index: ShardIndex, slots: torch.Tensor,
+                     base_vec: torch.Tensor, live: int, groups: int,
+                     width: int, *, spans: Optional[torch.Tensor] = None,
+                     rows: Optional[torch.Tensor] = None,
+                     count_only: bool = False
+                     ) -> Tuple[np.ndarray,
+                                List[Tuple[np.ndarray, np.ndarray]]]:
+        """The grouped windowed step over a chunk of P window pages.
 
-        Every shard streams ONE window of its bound-prefix range and
-        evaluates all G requests' instantiated-pattern sets against it,
-        so coalesced batches cost one launch per window instead of G.
-        Per (shard, group) the step emits a fixed-shape page of
-        compacted kept rows (capacity = window, so a window's matches
-        always fit), the first-matching-pattern index per kept row, the
-        kept-row count, and the group's Definition-2 ``cnt``
-        contribution; plus each shard's range length for paging. Steps
-        are cached per static geometry on the store (``_steps``).
+        One step in place of the reference's windowed, routed and
+        sub-window compacted grouped steps: one bind-join launch over the
+        chunk's pages of every shard, reading ``index``'s rows where they
+        lie. Per (page, shard) the chunk gives an owned span (``spans``
+        int64 [P, S, 2]: the windowed pages' ``[start + page * window,
+        min(start + (page + 1) * window, end))`` from the on-device
+        search, or a routed round's host-routed span, (0, 0) for an idle
+        shard) or a row list (``rows`` int32 [P, S, width], -1 padding:
+        compact pages' live rows). ``slots``/``live`` come from
+        ``kops.pack_slots``. One compaction and one device-to-host copy
+        follow; a count-only chunk copies back only ``cnt``.
 
-        ``step(triples, valid, keys, pats, pat_valid, base_vec, lo_key,
-        hi_key, page_idx)`` returns arrays shaped (shards, G, window[, C])
-        / (shards, G) / (shards,).
+        Returns the groups' Definition-2 ``cnt`` (int64 [groups]) and,
+        unless ``count_only``, per group its kept rows (int32 [K, 3]) and
+        their first-matching slots, page by page, then shard by shard.
         """
-        # clamp before building the cache key, so raw windows that
-        # clamp to the same effective value share one step
-        window = max(1, min(window, self.shard_n))
-        key = ("grouped", window, groups, wild_cols)
-        fn = self._steps.get(key)
-        if fn is not None:
-            return fn
+        mask, first, cnt, _ = kops.bindjoin_grouped_cuda(
+            index.triples, index.valid, slots, base_vec, live=live,
+            width=width, spans=spans, rows=rows)
 
-        def step(triples, valid, keys, pats, pat_valid, base_vec,
-                 lo_key, hi_key, page_idx):
-            start, end = _search(keys, lo_key, hi_key)
-            win, win_valid, in_span = _window_slice(
-                triples, valid, start, end, page_idx, window)
-            page, first, counts, cnts = _grouped_epilogue(
-                win, win_valid & in_span, pats, pat_valid, base_vec,
-                window, wild_cols)
-            return page, first, counts, cnts, end - start
+        def kept_rows(cells):
+            p, s, r = cells[:, 0], cells[:, 1], cells[:, 3]
+            pos = spans[p, s, 0] + r if rows is None \
+                else rows[p, s, r].to(torch.int64)
+            return index.triples[s, pos]
 
-        self._steps[key] = step
-        return step
-
-    def lowerable_windowed_routed(self, window: int, groups: int,
-                                  wild_cols: tuple = (0, 1, 2)):
-        """Routed grouped step (docs/federation.md, "Placement").
-
-        Same grouped geometry as :meth:`lowerable_windowed_grouped`, but
-        the shard-local span to stream arrives host-computed as explicit
-        ``(span_lo, span_hi)`` int32 [shards] position vectors instead of
-        being re-derived from ``(lo_key, hi_key)`` on device.  The host
-        planner needs that control under a workload-aware placement: it
-        has already chosen each replicated range's least-loaded owner and
-        subtracted the range from every other holder's span, so a
-        replicated triple is streamed by exactly one shard per request
-        and per-shard spans can differ in length.  A shard with no work
-        this round sends ``(0, 0)``.  Each round streams at most
-        ``window`` rows per shard.
-        """
-        window = max(1, min(window, self.shard_n))
-        key = ("routed", window, groups, wild_cols)
-        fn = self._steps.get(key)
-        if fn is not None:
-            return fn
-
-        def step(triples, valid, pats, pat_valid, base_vec, span_lo,
-                 span_hi):
-            dev = triples.device
-            lo = _to(span_lo, dev, torch.int64)
-            hi = _to(span_hi, dev, torch.int64)
-            slice_start = lo.clamp(0, max(triples.shape[1] - window, 0))
-            pos = (torch.arange(window, device=dev)[None, :]
-                   + slice_start[:, None])
-            in_span = (pos >= lo[:, None]) & (
-                pos < torch.minimum(lo + window, hi)[:, None])
-            win = _shard_rows(triples, pos)
-            ok = _shard_rows(valid, pos) & in_span
-            return _grouped_epilogue(win, ok, pats, pat_valid, base_vec,
-                                     window, wild_cols)
-
-        self._steps[key] = step
-        return step
-
-    def lowerable_windowed_grouped_compact(self, wc: int, groups: int,
-                                           wild_cols: tuple = (0, 1, 2)):
-        """Sub-window compacted grouped step (docs/fusion.md).
-
-        Instead of streaming a contiguous window, each shard gathers an
-        explicit row-index vector of capacity ``wc`` (< window),
-        host-computed from the ``merge_spans`` live spans inside the
-        page's span: when sub-ranges leave large dead gaps *inside* a
-        window, the gather skips them at row granularity. Rows outside
-        every per-binding sub-range are provably match-free, so dropping
-        them cannot change the response; the caller records the
-        reclaimed rows on the :class:`LaunchRecord`.
-
-        ``wc`` is a power of two (the caller only compacts when
-        ``wc <= window // 2``). ``row_sel`` is int32 [shards, wc]; index
-        -1 marks padding slots.
-        """
-        key = ("compact", wc, groups, wild_cols)
-        fn = self._steps.get(key)
-        if fn is not None:
-            return fn
-        bt = min(kops.DEFAULT_BT, wc)
-
-        def step(triples, valid, pats, pat_valid, base_vec, row_sel):
-            rs = _to(row_sel, triples.device, torch.int64)
-            safe = rs.clamp(min=0)
-            win = _shard_rows(triples, safe)                # (S, wc, 3)
-            ok = _shard_rows(valid, safe) & (rs >= 0)
-            return _grouped_epilogue(win, ok, pats, pat_valid, base_vec,
-                                     wc, wild_cols, bt=bt)
-
-        self._steps[key] = step
-        return step
+        return grouped_results(mask, first, cnt, groups, count_only,
+                               payload=kept_rows)
 
     def lowerable_windowed_fused(self, window: int, segs: int,
                                  groups: int):
@@ -879,6 +783,23 @@ def _chop_spans(spans: List[List[Tuple[int, int]]],
     return chunks, rounds
 
 
+def _row_list_chunks(sels: List[np.ndarray], shards: int):
+    """Consecutive compact pages' row lists (int32 [shards, wc] each) in
+    chunks of at most ``MAX_CHUNK_ROWS`` rows once padded to the chunk's
+    widest list; yields (row lists, width)."""
+    chunk: List[np.ndarray] = []
+    width = 0
+    for sel in sels:
+        w = max(width, sel.shape[1])
+        if chunk and (len(chunk) + 1) * shards * w > MAX_CHUNK_ROWS:
+            yield chunk, width
+            chunk, w = [], sel.shape[1]
+        chunk.append(sel)
+        width = w
+    if chunk:
+        yield chunk, width
+
+
 class ShardedSelector:
     """Sharded windowed selector with the KernelSelector contract.
 
@@ -900,10 +821,12 @@ class ShardedSelector:
     ``cnt`` sums the per-row matching-pattern counts over all shards,
     which equals the oracle's sum of per-instantiation stream sizes.
 
-    ``launches`` records one :class:`LaunchRecord` per window launch
-    with ``cand_streamed = window`` -- the rows ONE shard streams --
-    so the accounting surface (and the budgets gated on it) is shared
-    with the single-host kernel path.
+    ``launches`` records one :class:`LaunchRecord` per window page (or
+    routed round) with ``cand_streamed = window`` -- the rows ONE shard
+    streams -- so the accounting surface (and the budgets gated on it)
+    is the JAX package's and is shared with the single-host kernel
+    path. The card sees fewer launches: one grouped bind-join launch
+    per chunk of a request's pages (``grouped_chunks`` counts them).
 
     Omega-restricted pruning (docs/pruning.md): every request is
     launched from a host-side :class:`WindowPlan` -- the POS/OSP
@@ -926,6 +849,10 @@ class ShardedSelector:
         self.store = store
         self.fast_path_rows = int(fast_path_rows)
         self.launches: List[LaunchRecord] = []
+        # Grouped bind-join launches made: one per chunk of a request's
+        # window pages (``MAX_CHUNK_ROWS``), against one LaunchRecord
+        # per page in ``launches``.
+        self.grouped_chunks = 0
         # Placement surfaces (docs/federation.md, "Placement"): the
         # bounded heat log the re-partitioner consumes, and per-shard
         # attribution counters -- launches a shard had work in, candidate
@@ -1043,7 +970,7 @@ class ShardedSelector:
         patterns: Optional[List[List[TriplePattern]]] = None,
     ) -> List[Tuple[np.ndarray, int]]:
         """Serve G same-pattern requests from one sharded launch per
-        window page. Returns per-request (data sequence, cnt), each
+        chunk of window pages. Returns per-request (data sequence, cnt), each
         identical to ``brtpf_select_with_cnt(store, tp, omega_g)``.
 
         Groups resident in the connected fragment store never launch a
@@ -1106,10 +1033,10 @@ class ShardedSelector:
         Intersects each shard's live ``merge_spans`` sub-ranges with the
         page's owned span; if the widest shard's live row count, padded
         to a power of two, is at most half the window, returns the
-        int32 [shards, wc] gather-index table (-1 padding) for
-        ``lowerable_windowed_grouped_compact``. Otherwise (dead gaps too
-        small to pay for the gather) returns None and the page streams
-        contiguously as before.
+        int32 [shards, wc] row list (-1 padding) that the grouped step
+        reads in place of the page's span. Otherwise (dead gaps too
+        small to pay for it) returns None and the page streams its span
+        as before.
         """
         if not plan.pruned or plan.shard_spans is None \
                 or plan.shard_bounds is None:
@@ -1169,76 +1096,93 @@ class ShardedSelector:
         mp = kops.padded_pattern_slots(m)
         pats, valid, base_vec = marshal_pattern_grid(tp, patterns,
                                                      gpad, mp)
-        comps = tp.as_tuple()
-        wild = [i for i, c in enumerate(comps) if is_var(c)]
-        wild_cols = tuple(wild) or (0,)  # dummy column when fully bound
-        idx = self.fed.indexes[plan.order]
-        routed = self.fed.placement is not None
-        fn = None if routed else self.fed.lowerable_windowed_grouped(
-            window, gpad, wild_cols=wild_cols)
-
+        slots, live = kops.pack_slots(pats, valid, mp)
+        index = self.fed.indexes[plan.order]
+        shards = self.fed.shards
         dev = self.fed.device
-        pats_dev = _to(pats, dev)
-        valid_dev = _to(valid, dev)
-        bv_dev = _to(base_vec, dev)
+        slots_d = _to(slots, dev)
+        bv_d = _to(base_vec, dev)
         kept: List[List[np.ndarray]] = [[] for _ in range(g)]
         firsts: List[List[np.ndarray]] = [[] for _ in range(g)]
         cnt_total = np.zeros((g,), dtype=np.int64)
-        n_launched = 0
-        if routed:
+
+        def launch(width: int, **where) -> None:
+            # one grouped launch over a chunk of pages (or rounds)
+            self.grouped_chunks += 1
+            cnts, per_group = self.fed.grouped_step(
+                index, slots_d, bv_d, live, g, width,
+                count_only=count_only, **where)
+            cnt_total[:] += cnts
+            for gi, (rows_g, first_g) in enumerate(per_group):
+                if rows_g.shape[0]:
+                    kept[gi].append(rows_g)
+                    firsts[gi].append(first_g)
+
+        # The accounting is the reference's: one LaunchRecord and one
+        # charge per window page (or routed round), in page order.
+        per_chunk = max(1, MAX_CHUNK_ROWS // (shards * window))
+        if self.fed.placement is not None:
             # workload-aware placement: explicit per-shard spans with
             # replica ranges routed to one owner each
-            spans = self._routed_spans(plan)
-            chunks, rounds = _chop_spans(spans, window)
-            rfn = self.fed.lowerable_windowed_routed(
-                window, gpad, wild_cols=wild_cols)
-            page_rounds = []
+            chunks, rounds = _chop_spans(self._routed_spans(plan), window)
+            round_spans = np.zeros((rounds, shards, 2), dtype=np.int64)
             for r in range(rounds):
-                span_lo = np.zeros((len(chunks),), dtype=np.int32)
-                span_hi = np.zeros((len(chunks),), dtype=np.int32)
-                for s, cs in enumerate(chunks):
-                    if r < len(cs):
-                        span_lo[s], span_hi[s] = cs[r]
-                page_rounds.append(rfn(
-                    idx.triples, idx.valid, pats_dev, valid_dev, bv_dev,
-                    span_lo, span_hi))
                 self.launches.append(LaunchRecord(
                     cand_streamed=window, pat_slots=gpad * mp,
                     groups=g, pruned=plan.pruned, cand_full=window))
-                n_launched += 1
                 for s, cs in enumerate(chunks):
                     if r < len(cs):
                         a, b = cs[r]
+                        round_spans[r, s] = (a, b)
                         self.shard_launches[s] += 1
                         self.shard_pages[s] += 1
                         self.shard_rows[s] += b - a
-            for out in page_rounds:
-                cnt_total += _collect(out, g, kept, firsts, count_only)
+            for r0 in range(0, rounds, per_chunk):
+                launch(window,
+                       spans=_to(round_spans[r0:r0 + per_chunk], dev))
+            n_launched = rounds
         else:
+            # runs of consecutive pages of one kind (spans or compact row
+            # lists) keep the page order; each run goes in chunks
+            runs: List[Tuple[bool, list]] = []
             for page_idx in plan.pages:
                 row_sel = self._page_row_sel(plan, window, page_idx)
                 if row_sel is not None:
                     # sub-window compaction: gather only the live rows
                     wc = row_sel.shape[1]
-                    cfn = self.fed.lowerable_windowed_grouped_compact(
-                        wc, gpad, wild_cols=wild_cols)
-                    out = cfn(idx.triples, idx.valid, pats_dev, valid_dev,
-                              bv_dev, row_sel)
                     self.launches.append(LaunchRecord(
                         cand_streamed=wc, pat_slots=gpad * mp, groups=g,
                         pruned=True, cand_full=window,
                         reclaimed_rows=window - wc))
                 else:
-                    out = fn(idx.triples, idx.valid, idx.keys, pats_dev,
-                             valid_dev, bv_dev, plan.lo_key, plan.hi_key,
-                             page_idx)[:4]
                     self.launches.append(LaunchRecord(
                         cand_streamed=window, pat_slots=gpad * mp,
                         groups=g, pruned=plan.pruned, cand_full=window))
-                n_launched += 1
                 self._charge_shard_page(plan, window, page_idx,
                                         row_sel=row_sel)
-                cnt_total += _collect(out, g, kept, firsts, count_only)
+                compact = row_sel is not None
+                if not runs or runs[-1][0] != compact:
+                    runs.append((compact, []))
+                runs[-1][1].append(row_sel if compact else page_idx)
+            n_launched = len(plan.pages)
+            # the bound-prefix range, searched once per request on the
+            # device (the host keys only chose the pages)
+            start, end = _search(index.keys, plan.lo_key, plan.hi_key)
+            for compact, items in runs:
+                if compact:
+                    for sels, width in _row_list_chunks(items, shards):
+                        rows = np.full((len(sels), shards, width), -1,
+                                       dtype=np.int32)
+                        for i, sel in enumerate(sels):
+                            rows[i, :, :sel.shape[1]] = sel
+                        launch(width, rows=_to(rows, dev))
+                    continue
+                for i in range(0, len(items), per_chunk):
+                    pages = _to(np.asarray(items[i:i + per_chunk],
+                                           dtype=np.int64), dev)
+                    lo = start[None, :] + pages[:, None] * window
+                    hi = torch.minimum(lo + window, end[None, :])
+                    launch(window, spans=torch.stack([lo, hi], dim=-1))
         if self.heat is not None and n_launched:
             self.heat.record(plan.order, plan.lo_key, plan.hi_key,
                              launches=n_launched,
@@ -1250,16 +1194,8 @@ class ShardedSelector:
             if count_only or not kept[gi]:
                 out.append((_EMPTY, int(cnt_total[gi])))
                 continue
-            proj = np.concatenate(kept[gi], axis=0)
+            full = np.concatenate(kept[gi], axis=0)
             first_g = np.concatenate(firsts[gi], axis=0)
-            # reconstruct full triples from the request's bound
-            # components (the wire carried only unbound columns)
-            full = np.empty((proj.shape[0], 3), dtype=np.int32)
-            for i, c in enumerate(comps):
-                if is_var(c):
-                    full[:, i] = proj[:, wild.index(i)]
-                else:
-                    full[:, i] = c
             out.append((stream_order(full, first_g, patterns[gi]),
                         int(cnt_total[gi])))
         return out
@@ -1447,28 +1383,3 @@ class ShardedSelector:
                                            pats_live[gi]), cnt))
             finish_segment(self.fragments, seg, omegas_live, fresh,
                            results[si], live)
-
-
-def _collect(out, g: int, kept: List[List[np.ndarray]],
-             firsts: List[List[np.ndarray]], count_only: bool) -> np.ndarray:
-    """Host side of one grouped step's outputs: the per-group ``cnt``
-    over all shards (returned), and -- unless ``count_only`` -- each
-    (shard, group)'s kept rows and first-match indices appended to
-    ``kept``/``firsts``. Only the kept prefix of the pages is copied to
-    the host."""
-    page, first, counts, cnts = out
-    meta = torch.stack((counts[:, :g].to(torch.int64),
-                        cnts[:, :g])).cpu().numpy()
-    counts = meta[0]
-    n = int(counts.max(initial=0))
-    if count_only or n == 0:
-        return meta[1].sum(axis=0)
-    page = page[:, :g, :n].cpu().numpy()
-    first = first[:, :g, :n].cpu().numpy()
-    for s in range(page.shape[0]):
-        for gi in range(g):
-            k = int(counts[s, gi])
-            if k:
-                kept[gi].append(page[s, gi, :k])
-                firsts[gi].append(first[s, gi, :k])
-    return meta[1].sum(axis=0)

@@ -7,8 +7,8 @@ instantiated pattern. This module is the same selector inverted for the
 accelerator: the store exposes the pattern's contiguous index range as
 one packed candidate block (:meth:`TripleStore.candidate_range`), the
 hand-written CUDA bind-join kernel streams that block *once* against
-every instantiated pattern, and a fixed-shape ``compact_mask`` epilogue
-plus a small host reorder produce a fragment that is byte-identical to
+every instantiated pattern, and a compaction of the kept cells plus a
+small host reorder produce a fragment that is byte-identical to
 the numpy selector's -- same data-triple sequence, same ordering, same
 Definition-2 ``cnt`` estimate, and the same ``LaunchRecord`` geometry as
 the JAX package's selector (``tests/test_torch_selectors.py``).
@@ -35,8 +35,9 @@ Why parity holds despite the kernel's flat wildcard grid:
   ``tp``, so ``candidate_range(tp)`` covers all per-pattern streams --
   and the pruned sub-range union covers them by construction;
 * repeated-variable constraints are shared by *all* instantiations, so
-  conjoining the base pattern's equality flags (``tpf_match``) restores
-  exact semantics for every pattern at once;
+  conjoining the base pattern's equality flags (``tpf_match``'s test,
+  run in the grouped kernel's prologue) restores exact semantics for
+  every pattern at once;
 * on rows passing those flags, grid-match == exact match per pattern,
   so the kernel's first-match index reproduces the numpy selector's
   first-occurrence dedup and its match count reproduces ``cnt``;
@@ -152,31 +153,36 @@ def _kept_mask(keep, base_mask, row_valid):
     return keep & base_mask[:, None] & row_valid[:, None]     # (Tp, G)
 
 
-def _compact_epilogue(keep, idx_first, nmatch, base_mask, row_valid,
-                      capacity: int):
-    """Device epilogue over the grouped kernel outputs.
+def grouped_results(mask, first, cnt, groups: int, count_only: bool,
+                    payload=None) -> Tuple[np.ndarray, List[Tuple]]:
+    """Host side of one windowed grouped launch: one compaction and one
+    device-to-host copy of everything the host needs.
 
-    Combines the per-group keep grid with the base pattern's
-    repeated-variable mask and the padding-row mask, then produces the
-    fixed-shape compacted row indices + count per group, the kept rows'
-    first-match indices, and the Definition-2 ``cnt`` (sum of per-row
-    match counts over kept rows, int64).
+    ``mask`` uint8 ``[P, S, G, W]``, ``first`` int32 and ``cnt`` int64
+    ``[P, S, G]`` as ``kops.bindjoin_grouped_cuda`` returns them.
+    Returns the Definition-2 ``cnt`` of the first ``groups`` groups
+    summed over pages and shards and, unless ``count_only`` (no
+    compaction at all), per group a pair: the int32 ``[K_g, C]`` columns
+    ``payload`` computes on the device from the kept cells' ``(p, s, g,
+    r)`` indices (int64 ``[K, 4]``), and the cells' first matching slots,
+    each in page, shard, row order. The copy is int32: the int64 ``cnt``
+    travels as pairs of int32 words, and a cell's group and first
+    matching slot as one word, ``first * G + g``.
     """
-    mask = _kept_mask(keep, base_mask, row_valid)
-    cnts = torch.where(mask, nmatch, 0).sum(dim=0)            # (G,)
-    rows, counts = kops.compact_mask(mask.T, capacity)        # (G, Tp), (G,)
-    firsts = torch.gather(idx_first.T, 1, rows.clamp(min=0).long())
-    return rows, counts, cnts, firsts
-
-
-def _count_epilogue(keep, nmatch, base_mask, row_valid):
-    """Count-only epilogue: just the Definition-2 ``cnt`` per group.
-
-    No compaction, no row indices -- a count-only selection never
-    gathers the rows it would not return (docs/fusion.md).
-    """
-    mask = _kept_mask(keep, base_mask, row_valid)
-    return torch.where(mask, nmatch, 0).sum(dim=0)            # (G,)
+    cnt = cnt[..., :groups].sum(dim=(0, 1))
+    if count_only:
+        return cnt.cpu().numpy(), []
+    g_all = mask.shape[2]
+    cells = torch.nonzero(mask)                      # (K, 4), row-major
+    key = first[tuple(cells.T)] * g_all + cells[:, 2]
+    cols = torch.cat([payload(cells), key[:, None]], dim=1)
+    host = torch.cat([cnt.view(torch.int32),
+                      cols.to(torch.int32).reshape(-1)]).cpu().numpy()
+    cols_h = host[2 * groups:].reshape(-1, cols.shape[1])
+    group, first_h = np.divmod(cols_h[:, -1], g_all)[::-1]
+    return host[:2 * groups].view(np.int64), [
+        (cols_h[group == gi, :-1], first_h[group == gi])
+        for gi in range(groups)]
 
 
 def _fused_base_mask(cand, seg_of_row, base_vecs):
@@ -185,7 +191,7 @@ def _fused_base_mask(cand, seg_of_row, base_vecs):
     ``base_vecs`` is int32 [S, 8] (one ``pattern_vec_from`` per segment);
     each row applies its own segment's bound components and repeated-
     variable equality flags -- the fused-stream generalization of the
-    single ``tpf_match`` launch on the same-pattern path.
+    grouped kernel's base-pattern prologue on the same-pattern path.
     """
     bv = base_vecs[seg_of_row.clamp(min=0).long()]           # (T, 8)
     mask = torch.ones(cand.shape[0], dtype=torch.bool, device=cand.device)
@@ -835,45 +841,31 @@ class KernelSelector:
         g = len(patterns)
         m = max(len(p) for p in patterns)
         pats, valid, base_vec = marshal_pattern_grid(tp, patterns, g, m)
-
-        # Pad the candidate block to its shape bucket.
-        tpad = _bucket(t)
-        cand = np.zeros((tpad, 3), dtype=np.int32)
-        cand[:t] = block
-        row_valid = np.zeros((tpad,), dtype=bool)
-        row_valid[:t] = True
-
-        cand_d = self._to_device(cand)
-        keep, idx, nmatch = kops.bindjoin_grouped(
-            cand_d, self._to_device(pats), self._to_device(valid))
-        base_mask = kops.tpf_match(cand_d, self._to_device(base_vec))
-        row_valid_d = self._to_device(row_valid)
-
         mp = kops.padded_pattern_slots(m)
+        slots, live = kops.pack_slots(pats, valid, mp)
+
+        # One page, one shard: the block's own rows over [0, t), in a
+        # launch as wide as the block's shape bucket.
+        tpad = _bucket(t)
+        mask, first, cnt, _ = kops.bindjoin_grouped_cuda(
+            self._to_device(np.ascontiguousarray(block, np.int32))[None],
+            None, self._to_device(slots), self._to_device(base_vec),
+            live=live, width=tpad,
+            spans=self._to_device(np.array([[[0, t]]], np.int64)))
         self.launches.append(
             LaunchRecord(cand_streamed=tpad, pat_slots=g * mp, groups=g,
                          pruned=pruned, cand_full=_bucket(full),
                          cand_rows=t, full_rows=full))
-
-        if count_only:
-            cnts = _count_epilogue(keep, nmatch, base_mask, row_valid_d)
-            return [(_EMPTY, int(c)) for c in cnts.cpu().numpy()]
-
-        rows, counts, cnts, firsts = _compact_epilogue(
-            keep, idx, nmatch, base_mask, row_valid_d, capacity=tpad)
-        counts = counts.cpu().numpy()
-        cnts = cnts.cpu().numpy()
-        rows, firsts = _rows_to_host(rows, firsts, counts)
+        cnts, kept = grouped_results(mask, first, cnt, g, count_only,
+                                     payload=lambda c: c[:, 3:4])
         out: List[Tuple[np.ndarray, int]] = []
         for gi in range(g):
-            n = int(counts[gi])
-            if n == 0:
+            if count_only or kept[gi][1].shape[0] == 0:
                 out.append((_EMPTY, int(cnts[gi])))
                 continue
-            kept = cand[rows[gi, :n]]              # tp-index order
-            first = firsts[gi, :n]                 # first matching pattern
-            out.append((self._stream_order(kept, first, patterns[gi]),
-                        int(cnts[gi])))
+            rows, first_g = kept[gi]
+            out.append((self._stream_order(block[rows[:, 0]], first_g,
+                                           patterns[gi]), int(cnts[gi])))
         return out
 
     # -- ordering epilogue ---------------------------------------------------

@@ -3,26 +3,32 @@ spot).
 
 The hand-written CUDA kernels are in ``csrc/bindjoin.cu``. They replace
 the TPU kernels ``repro/kernels/bindjoin.py:bindjoin_pallas``,
-``:bindjoin_grouped_pallas`` and ``:bindjoin_fused_pallas``. For every
-candidate row and request group g the grouped and fused kernels compute
-``keep`` (the row matches a valid slot of g), ``idx`` (the smallest
-matching slot, or Mp when none) and ``nmatch`` (the number of matching
-valid slots: the row's share of the Definition-2 ``cnt``), each int32
-``[T, G]``. The ungrouped kernel (the sharded backend's full-shard
-stream) computes ``keep`` and ``idx`` int32 ``[T]`` against one slot set,
-with ``idx`` = the padded M where no slot matches.
+``:bindjoin_grouped_pallas`` and ``:bindjoin_fused_pallas``; the grouped
+kernel also takes over the ``tpf_match`` base mask of every grouped
+step.
 
-On the card all three are bound by integer operations: every (row, slot)
-cell costs a few compares while the candidate and output bytes are
-touched once. One thread per row keeps any / min / count in registers
-while the block stages its group's slots through shared memory tile by
-tile; the fused kernel stages only its tile's own segment's slots (the
-whole table can exceed one block's shared memory) and skips dead tiles.
+The grouped kernel serves a chunk of P window pages of S shards in one
+launch, reading the store's own ``[S, N, 3]`` rows: per (page, shard) an
+owned span ``[lo, hi)`` or an explicit row list, a fused prologue (span,
+valid flag, base pattern with its repeated-variable flags), then a loop
+over each group's live slots only. It writes ``mask`` uint8
+``[P, S, G, W]``, the first matching slot ``first`` int32 (Mp when none)
+and the Definition-2 ``cnt`` int64 ``[P, S, G]``. With a wildcard base
+vector, one page over ``[0, T)`` and ``dense=True`` (``first`` and
+``nmatch`` for every row) it is the reference op's grouped bind-join.
+
+The fused kernel computes, for every candidate row and group g, ``keep``
+(the row matches a valid slot of its own segment's group g), ``idx``
+(the smallest matching slot, or Mp) and ``nmatch``, each int32
+``[T, G]``; the ungrouped kernel (the sharded backend's full-shard
+stream) computes ``keep`` and ``idx`` int32 ``[T]`` against one slot
+set, with ``idx`` = the padded M where no slot matches. Both keep one
+thread per row and stage slots through shared memory tile by tile.
 
 Each ``*_cuda`` wrapper dispatches on the tensor's device: a CUDA tensor
-launches the kernel (counted in the wrapper's ``launches``), a CPU
-tensor takes the ``*_plain`` version. There is no fallback: a CUDA launch
-that fails raises.
+launches the kernel (counted in the wrapper's ``launches``, its geometry
+tallied in ``shapes``), a CPU tensor takes the ``*_plain`` version.
+There is no fallback: a CUDA launch that fails raises.
 """
 from __future__ import annotations
 
@@ -67,16 +73,53 @@ def bindjoin_plain(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o, pat_valid):
     return tuple(torch.cat(xs) for xs in zip(*parts, strict=True))
 
 
-def bindjoin_grouped_plain(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o,
-                           pat_valid, *, groups: int):
-    """Plain PyTorch version of the grouped kernel, same flat inputs
-    (``pat_*`` int32 ``[G * Mp]``) and int32 ``[T, G]`` outputs."""
-    mp = pat_s.shape[0] // groups
-    pats = [x.reshape(groups, mp) for x in (pat_s, pat_p, pat_o, pat_valid)]
-    parts = [_int32_outputs(*ref.bindjoin_grouped_ref(
-        cand_s[lo:hi], cand_p[lo:hi], cand_o[lo:hi], *pats))
-        for lo, hi in _row_chunks(cand_s.shape[0], groups * mp)]
-    return tuple(torch.cat(xs) for xs in zip(*parts, strict=True))
+def _window_positions(spans, rows, width: int, n: int):
+    """Positions int64 ``[P, S, W]`` a launch reads, and which of them
+    lie in their span (or list) and below ``n``."""
+    if rows is None:
+        pos = spans[..., :1] + torch.arange(width, device=spans.device)
+        inside = (pos >= 0) & (pos < spans[..., 1:])
+    else:
+        pos = rows.to(torch.int64)
+        inside = pos >= 0
+    return pos, inside & (pos < n)
+
+
+def bindjoin_grouped_plain(triples, valid, slots, base_vec, *, spans=None,
+                           rows=None, width: int, live=None,
+                           dense: bool = False):
+    """Plain PyTorch version of the grouped kernel: the same inputs and
+    outputs (``live`` is the kernel's staging width and changes
+    nothing here: slots past a group's last valid one match nothing).
+    ``first`` is Mp wherever the mask is clear; the kernel leaves those
+    entries unset unless ``dense``."""
+    del live
+    s, n = triples.shape[:2]
+    g, mp = slots.shape[:2]
+    pos, ok = _window_positions(spans, rows, width, n)
+    p = pos.shape[0]
+    shard = torch.arange(s, device=triples.device)[None, :, None]
+    safe = torch.where(ok, pos, 0)
+    cand = triples[shard, safe].reshape(-1, 3)            # (P * S * W, 3)
+    if valid is not None:
+        ok = ok & valid[shard, safe].bool()
+    ok = ok.reshape(-1) & ref.tpf_match_ref(cand[:, 0], cand[:, 1],
+                                            cand[:, 2], base_vec)
+    pats = [slots[..., i] for i in range(4)]
+    parts = [ref.bindjoin_grouped_ref(cand[lo:hi, 0], cand[lo:hi, 1],
+                                      cand[lo:hi, 2], *pats)
+             for lo, hi in _row_chunks(cand.shape[0], g * mp)]
+    keep, idx, nmatch = (torch.cat(xs) for xs in zip(*parts, strict=True))
+    ok = ok[:, None]
+    nmatch = torch.where(ok, nmatch, 0)
+    idx = torch.where(ok, idx, mp)
+
+    def cells(x):                                   # (R, G) -> (P, S, G, W)
+        return x.reshape(p, s, width, g).permute(0, 1, 3, 2).contiguous()
+
+    mask = cells((keep & ok).to(torch.uint8))
+    cnt = nmatch.to(torch.int64).reshape(p, s, width, g).sum(dim=2)
+    return mask, cells(idx), cnt, cells(nmatch) if dense else None
 
 
 def bindjoin_fused_plain(seg_of_tile, cand_s, cand_p, cand_o, pat_s, pat_p,
@@ -149,39 +192,95 @@ bindjoin_cuda.launches = 0
 bindjoin_cuda.shapes = Counter()
 
 
-def bindjoin_grouped_cuda(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o,
-                          pat_valid, *, groups: int):
-    """Grouped bind-join filter: one candidate pass, G pattern sets.
+def _check_grouped(triples, valid, slots, base_vec, spans, rows,
+                   width: int, live: int):
+    device = triples.device
+    if triples.dtype != torch.int32 or triples.dim() != 3 \
+            or triples.shape[2] != 3 or not triples.is_contiguous():
+        raise ValueError("triples must be a contiguous int32 [S, N, 3]")
+    s, n = triples.shape[:2]
+    if valid is not None and (valid.dtype not in (torch.bool, torch.uint8)
+                              or tuple(valid.shape) != (s, n)
+                              or not valid.is_contiguous()
+                              or valid.device != device):
+        raise ValueError(f"valid must be a contiguous bool [{s}, {n}]")
+    if slots.dtype != torch.int32 or slots.dim() != 3 \
+            or slots.shape[2] != 4 or not slots.is_contiguous() \
+            or slots.device != device or slots.data_ptr() % 16:
+        raise ValueError("slots must be a contiguous int32 [G, Mp, 4] "
+                         "on a 16-byte boundary (the kernel reads int4)")
+    if base_vec.dtype != torch.int32 or tuple(base_vec.shape) != (8,) \
+            or not base_vec.is_contiguous() or base_vec.device != device:
+        raise ValueError("base_vec must be a contiguous int32 [8]")
+    if (spans is None) == (rows is None):
+        raise ValueError("give exactly one of spans and rows")
+    if spans is not None:
+        ok = (spans.dtype == torch.int64 and spans.dim() == 3
+              and spans.shape[1:] == (s, 2))
+        where = spans
+    else:
+        ok = (rows.dtype == torch.int32 and rows.dim() == 3
+              and rows.shape[1:] == (s, width))
+        where = rows
+    if not ok or not where.is_contiguous() or where.device != device:
+        raise ValueError(f"spans must be int64 [P, {s}, 2] or rows int32 "
+                         f"[P, {s}, {width}], contiguous, on {device}")
+    if width < 1 or not 0 <= live <= slots.shape[1]:
+        raise ValueError(f"width {width} or live {live} out of range")
+    return where.shape[0]
 
-    Candidates are int32 ``[T]`` components; pattern inputs are flat
-    int32 ``[G * Mp]`` slot tables. Returns (keep, idx, nmatch) int32
-    ``[T, G]`` with ``idx == Mp`` where a row matches none of group g's
-    slots.
+
+def bindjoin_grouped_cuda(triples, valid, slots, base_vec, *, spans=None,
+                          rows=None, width: int, live: int,
+                          dense: bool = False):
+    """Grouped bind-join over a chunk of window pages: one launch.
+
+    ``triples`` int32 ``[S, N, 3]`` and ``valid`` bool ``[S, N]`` (or
+    None: every row valid) are read where they lie. Each of the P pages
+    gives every shard either an owned span (``spans`` int64 ``[P, S, 2]``,
+    positions ``lo + r`` for ``r < width``, kept below ``hi``) or a row
+    list (``rows`` int32 ``[P, S, width]``, -1 = no row). ``slots`` is
+    the int32 ``[G, Mp, 4]`` table (s, p, o, valid; component < 0 =
+    wildcard), ``base_vec`` the int32 ``[8]`` base pattern vector, and
+    ``live`` the slots staged per group: at least one past every
+    group's last valid slot, at most Mp.
+
+    Returns ``mask`` uint8 ``[P, S, G, W]``, ``first`` int32 (the first
+    matching slot, Mp when none; set where the mask is, and everywhere
+    with ``dense``), ``cnt`` int64 ``[P, S, G]`` (the Definition-2 sum of
+    matching slots over kept rows) and, with ``dense``, ``nmatch`` int32
+    ``[P, S, G, W]`` (else None).
     """
-    if cand_s.device.type == "cpu":
-        return bindjoin_grouped_plain(cand_s, cand_p, cand_o, pat_s, pat_p,
-                                      pat_o, pat_valid, groups=groups)
-    if cand_s.device.type != "cuda":
+    if triples.device.type == "cpu":
+        return bindjoin_grouped_plain(triples, valid, slots, base_vec,
+                                      spans=spans, rows=rows, width=width,
+                                      live=live, dense=dense)
+    if triples.device.type != "cuda":
         raise ValueError(f"bindjoin_grouped: unsupported device "
-                         f"{cand_s.device}")
-    gm = pat_s.shape[0]
-    if groups < 1 or gm % groups:
-        raise ValueError(f"slot table of {gm} is not {groups} groups")
-    device = _check_inputs((cand_s, cand_p, cand_o),
-                           (pat_s, pat_p, pat_o, pat_valid), gm)
-    t = cand_s.shape[0]
-    keep, idx, nmatch = _outputs(t, groups, device)
+                         f"{triples.device}")
+    p = _check_grouped(triples, valid, slots, base_vec, spans, rows, width,
+                       live)
+    s, n = triples.shape[:2]
+    g, mp = slots.shape[:2]
+    device = triples.device
+    mask = torch.empty((p, s, g, width), dtype=torch.uint8, device=device)
+    first = torch.empty((p, s, g, width), dtype=torch.int32, device=device)
+    cnt = torch.zeros((p, s, g), dtype=torch.int64, device=device)
+    nmatch = torch.empty_like(first) if dense else None
+    if mask.numel() == 0:
+        return mask, first, cnt, nmatch
     lib = build.library("bindjoin")
     err = lib.brtpf_bindjoin_grouped(
-        cand_s.data_ptr(), cand_p.data_ptr(), cand_o.data_ptr(),
-        pat_s.data_ptr(), pat_p.data_ptr(), pat_o.data_ptr(),
-        pat_valid.data_ptr(), keep.data_ptr(), idx.data_ptr(),
-        nmatch.data_ptr(), t, groups, gm // groups,
-        torch.cuda.current_stream(device).cuda_stream)
+        triples.data_ptr(), None if valid is None else valid.data_ptr(),
+        None if spans is None else spans.data_ptr(),
+        None if rows is None else rows.data_ptr(), slots.data_ptr(),
+        base_vec.data_ptr(), mask.data_ptr(), first.data_ptr(),
+        cnt.data_ptr(), None if nmatch is None else nmatch.data_ptr(), n, p,
+        s, width, g, mp, live, torch.cuda.current_stream(device).cuda_stream)
     build.check(err, "bindjoin_grouped")
     bindjoin_grouped_cuda.launches += 1
-    bindjoin_grouped_cuda.shapes[(t, groups, gm // groups)] += 1
-    return keep, idx, nmatch
+    bindjoin_grouped_cuda.shapes[(p, s, width, g, mp, live)] += 1
+    return mask, first, cnt, nmatch
 
 
 bindjoin_grouped_cuda.launches = 0

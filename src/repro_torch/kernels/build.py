@@ -37,11 +37,11 @@ _I = ctypes.c_int
 # cudaGetLastError() of the launch).
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "tpf_match": {
-        "brtpf_tpf_match": (_P, _P, _P, _P, _P, _LL, _P),
+        "brtpf_tpf_match": (_P, _P, _P, _LL, _P),
     },
     "bindjoin": {
         "brtpf_bindjoin": (_P,) * 9 + (_LL, _I, _P),
-        "brtpf_bindjoin_grouped": (_P,) * 10 + (_LL, _I, _I, _P),
+        "brtpf_bindjoin_grouped": (_P,) * 10 + (_LL,) + (_I,) * 6 + (_P,),
         "brtpf_bindjoin_fused": (_P,) * 11 + (_LL, _I, _I, _P),
     },
 }

@@ -1,12 +1,16 @@
 """Padding and dispatch around the kernels (the port of
 ``repro/kernels/ops.py``).
 
-Each op pads exactly as the JAX package's op does, so the launch
-geometry (and with it every ``LaunchRecord``) is the same, then hands
-the padded structure-of-arrays inputs to the kernel's wrapper. Dispatch
-follows the tensor's device: a CUDA tensor gets the hand-written kernel,
-a CPU tensor its plain PyTorch version. ``compact_mask`` was plain
-``jnp`` in the reference and stays plain torch here.
+The ungrouped and fused ops pad exactly as the JAX package's ops do and
+hand structure-of-arrays inputs to their kernels. The grouped op and
+``tpf_match`` hand over the ``[T, 3]`` rows as they lie: their kernels
+mask their own edges, so no op pads candidates (the outputs for the
+caller's rows are the reference's). The selectors call the grouped
+kernel's windowed form (``bindjoin_grouped_cuda``) directly, with the
+host-side slot table of ``pack_slots``. Dispatch follows the tensor's
+device: a CUDA tensor gets the hand-written kernel, a CPU tensor its
+plain PyTorch version. ``compact_mask`` was plain ``jnp`` in the
+reference and stays plain torch here.
 """
 from __future__ import annotations
 
@@ -19,11 +23,6 @@ from .bindjoin import (DEFAULT_BM, DEFAULT_BT, DEFAULT_FUSED_BT,
                        bindjoin_cuda, bindjoin_fused_cuda,
                        bindjoin_grouped_cuda)
 from .tpf_match import tpf_match_cuda
-
-# The reference pads the single-pattern matcher's candidates to whole
-# (256, 128) TPU tiles; the CUDA kernel masks its own edge, but the op
-# keeps the same padding so padded outputs agree row for row.
-TPF_MATCH_TILE = 256 * 128
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -85,9 +84,23 @@ def _pad_slots(x: torch.Tensor, mp: int) -> torch.Tensor:
     return out.reshape(-1)
 
 
+def pack_slots(patterns: np.ndarray, pat_valid: np.ndarray,
+               mp: int) -> Tuple[np.ndarray, int]:
+    """Host slot table of the grouped kernel: int32 ``[G, mp, 4]`` rows
+    (s, p, o, valid) with zero padding past each group's m slots, and
+    ``live``, one past the last valid slot of any group (0 if none): the
+    slots the kernel stages per group."""
+    g, m = pat_valid.shape
+    slots = np.zeros((g, mp, 4), dtype=np.int32)
+    slots[:, :m, :3] = patterns
+    slots[:, :m, 3] = pat_valid
+    valid_cols = np.flatnonzero(np.asarray(pat_valid).any(axis=0))
+    live = int(valid_cols[-1]) + 1 if valid_cols.size else 0
+    return slots, live
+
+
 def bindjoin_grouped(cand: torch.Tensor, patterns: torch.Tensor,
-                     pat_valid: torch.Tensor, *, bt: int = DEFAULT_BT,
-                     bm: int = DEFAULT_BM
+                     pat_valid: torch.Tensor, *, bm: int = DEFAULT_BM
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Grouped bind-join filter: G pattern sets, one candidate pass.
 
@@ -102,16 +115,23 @@ def bindjoin_grouped(cand: torch.Tensor, patterns: torch.Tensor,
       idx:    int32 [T, G] -- first matching within-group pattern index
         (= padded M if none).
       nmatch: int32 [T, G] -- matching-pattern count (cnt contribution).
+
+    The windowed kernel with its prologue off: one page over [0, T), a
+    wildcard base vector, every row valid, dense outputs.
     """
     t = cand.shape[0]
-    g, m = patterns.shape[0], patterns.shape[1]
-    cs, cp, co = (_pad_to(cand[:, i], bt, 0) for i in range(3))
-    mp = padded_pattern_slots(m, bm)
-    ps, pp, po = (_pad_slots(patterns[:, :, i], mp) for i in range(3))
-    pv = _pad_slots(pat_valid.to(torch.int32), mp)
-    keep, idx, nmatch = bindjoin_grouped_cuda(cs, cp, co, ps, pp, po, pv,
-                                              groups=g)
-    return keep[:t].bool(), idx[:t], nmatch[:t]
+    mp = padded_pattern_slots(patterns.shape[1], bm)
+    slots, live = pack_slots(patterns.cpu().numpy(),
+                             pat_valid.cpu().numpy().astype(np.int32), mp)
+    dev = cand.device
+    wild = torch.as_tensor(pattern_vec_from((-1, -1, -1))).to(dev)
+    spans = torch.tensor([[[0, t]]], dtype=torch.int64, device=dev)
+    mask, idx, _cnt, nmatch = bindjoin_grouped_cuda(
+        cand.to(torch.int32).contiguous()[None], None,
+        torch.as_tensor(slots).to(dev), wild, spans=spans,
+        width=max(t, 1), live=live, dense=True)
+    return (mask[0, 0, :, :t].T.bool(), idx[0, 0, :, :t].T,
+            nmatch[0, 0, :, :t].T)
 
 
 def bindjoin_fused(cand: torch.Tensor, seg_of_tile: torch.Tensor,
@@ -155,15 +175,11 @@ def tpf_match(cand: torch.Tensor, pattern_vec: torch.Tensor) -> torch.Tensor:
     Args:
       cand: int32 [T, 3]; pattern_vec: int32 [8]
         = [s, p, o, eq_sp, eq_so, eq_po, 0, 0], components < 0 wild.
-    Returns: bool [T].
+    Returns: bool [T] (the kernel's uint8 mask, viewed as bool).
     """
-    t = cand.shape[0]
-    cs = _pad_to(cand[:, 0], TPF_MATCH_TILE, -1)
-    cp = _pad_to(cand[:, 1], TPF_MATCH_TILE, -2)  # s != p for padding rows
-    co = _pad_to(cand[:, 2], TPF_MATCH_TILE, -3)  # -> eq_* reject them
-    mask = tpf_match_cuda(cs, cp, co,
+    mask = tpf_match_cuda(cand.to(torch.int32).contiguous(),
                           pattern_vec.to(torch.int32).contiguous())
-    return mask[:t].bool()
+    return mask.view(torch.bool)
 
 
 def compact_mask(mask: torch.Tensor, capacity: int

@@ -1,10 +1,13 @@
-"""Single-triple-pattern matcher (the TPF selector's base mask).
+"""Single-triple-pattern matcher (the full-shard stream's base mask).
 
 The hand-written CUDA kernel is ``csrc/tpf_match.cu``. It replaces the
 TPU kernel ``repro/kernels/tpf_match.py:tpf_match_pallas``. On the card
-it is bound by bytes (16 per row against about a dozen integer
-operations), so it is one coalesced pass, one thread per row, that masks
-its own ragged edge.
+it is bound by bytes (13 per row against about a dozen integer
+operations), so it is one pass, one thread per row of the AoS
+``[T, 3]`` block as it lies, that masks its own ragged edge and writes a
+uint8 mask. Only ``FederatedStore.execute_full`` and its steps launch it:
+the grouped steps run the same test in the grouped bind-join kernel's
+prologue.
 
 :func:`tpf_match_cuda` dispatches on the tensor's device: a CUDA tensor
 launches the kernel (and counts the launch in ``tpf_match_cuda.launches``,
@@ -21,10 +24,10 @@ import torch
 from . import build, ref
 
 
-def tpf_match_plain(cand_s, cand_p, cand_o, pattern_vec) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: int32 [T] mask (1 = match)."""
-    return ref.tpf_match_ref(cand_s, cand_p, cand_o,
-                             pattern_vec).to(torch.int32)
+def tpf_match_plain(cand, pattern_vec) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: uint8 [T] mask (1 = match)."""
+    return ref.tpf_match_ref(cand[:, 0], cand[:, 1], cand[:, 2],
+                             pattern_vec).to(torch.uint8)
 
 
 def _check(name: str, x: torch.Tensor, shape, device) -> None:
@@ -35,27 +38,25 @@ def _check(name: str, x: torch.Tensor, shape, device) -> None:
                          f"expected {tuple(shape)} on {device}")
 
 
-def tpf_match_cuda(cand_s: torch.Tensor, cand_p: torch.Tensor,
-                   cand_o: torch.Tensor,
+def tpf_match_cuda(cand: torch.Tensor,
                    pattern_vec: torch.Tensor) -> torch.Tensor:
     """Match one pattern vector ``[s, p, o, eq_sp, eq_so, eq_po, 0, 0]``
-    against T candidate triples given as int32 ``[T]`` components.
-    Returns the int32 ``[T]`` mask (1 = match)."""
-    if cand_s.device.type == "cpu":
-        return tpf_match_plain(cand_s, cand_p, cand_o, pattern_vec)
-    if cand_s.device.type != "cuda":
-        raise ValueError(f"tpf_match: unsupported device {cand_s.device}")
-    t = cand_s.shape[0]
-    for name, x in (("cand_s", cand_s), ("cand_p", cand_p),
-                    ("cand_o", cand_o)):
-        _check(name, x, (t,), cand_s.device)
-    _check("pattern_vec", pattern_vec, (8,), cand_s.device)
-    mask = torch.empty((t,), dtype=torch.int32, device=cand_s.device)
+    against the int32 ``[T, 3]`` candidate triples. Returns the uint8
+    ``[T]`` mask (1 = match)."""
+    if cand.device.type == "cpu":
+        return tpf_match_plain(cand, pattern_vec)
+    if cand.device.type != "cuda":
+        raise ValueError(f"tpf_match: unsupported device {cand.device}")
+    t = cand.shape[0]
+    _check("cand", cand, (t, 3), cand.device)
+    _check("pattern_vec", pattern_vec, (8,), cand.device)
+    mask = torch.empty((t,), dtype=torch.uint8, device=cand.device)
+    if t == 0:
+        return mask
     lib = build.library("tpf_match")
     err = lib.brtpf_tpf_match(
-        cand_s.data_ptr(), cand_p.data_ptr(), cand_o.data_ptr(),
-        pattern_vec.data_ptr(), mask.data_ptr(), t,
-        torch.cuda.current_stream(cand_s.device).cuda_stream)
+        cand.data_ptr(), pattern_vec.data_ptr(), mask.data_ptr(), t,
+        torch.cuda.current_stream(cand.device).cuda_stream)
     build.check(err, "tpf_match")
     tpf_match_cuda.launches += 1
     tpf_match_cuda.shapes[(t,)] += 1

@@ -31,6 +31,27 @@ def rand_patterns(rng, shape, terms=6, wild_frac=0.4):
     return pats
 
 
+def live_prefix_slots(rng, g, mp, live):
+    """A slot table as marshal_pattern_grid makes one: per group a live
+    prefix of random slots (the last one valid, a hole below it), then
+    padding; returns it with its live width."""
+    slots = np.zeros((g, mp, 4), np.int32)
+    slots[:, :live, :3] = rand_patterns(rng, (g, live), terms=4)
+    slots[:, :live, 3] = 1
+    if live > 2:
+        slots[:, live // 2, 3] = 0
+    return slots, live
+
+
+def assert_windows_equal(got, want):
+    """mask and cnt exactly; first wherever the mask is set (the kernel
+    leaves the other entries unset)."""
+    mask, first, cnt, _ = got
+    assert torch.equal(mask, want[0]) and torch.equal(cnt, want[2])
+    kept = mask.bool()
+    assert torch.equal(first[kept], want[1][kept])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -42,34 +63,115 @@ def cuda_device():
 class TestKernelsOnCard:
     """Each hand-written kernel against its plain version on the card."""
 
-    def test_tpf_match(self, cuda_device):
+    @pytest.mark.parametrize("t", [1, 70001])
+    def test_tpf_match(self, cuda_device, t):
+        """The [T, 3] rows as they lie, a ragged T, a uint8 mask."""
         rng = np.random.default_rng(31)
-        cand = [torch.as_tensor(c, device=cuda_device)
-                for c in rand_triples(rng, 70001, terms=3).T.copy()]
+        cand = torch.as_tensor(rand_triples(rng, t, terms=3),
+                               device=cuda_device)
         for vec in [(-1, -1, -1, 0, 0, 0), (1, -1, -1, 0, 1, 0),
                     (-1, 2, -1, 0, 0, 0), (-1, -1, -1, 1, 1, 1)]:
             pv = torch.tensor([*vec, 0, 0], dtype=torch.int32,
                               device=cuda_device)
-            got = tpf_match_cuda(*cand, pv)
-            want = tpf_match_plain(*cand, pv)
+            got = tpf_match_cuda(cand, pv)
+            want = tpf_match_plain(cand, pv)
             torch.cuda.synchronize()
-            assert torch.equal(got, want)
+            assert got.dtype == torch.uint8 and torch.equal(got, want)
 
     @pytest.mark.parametrize("t,g,mp", [(1000, 1, 128), (4096, 3, 256),
                                         (300, 8, 384)])
     def test_bindjoin_grouped(self, cuda_device, t, g, mp):
+        """The reference op's contract: prologue off, dense outputs."""
         rng = np.random.default_rng(t + g + mp)
-        cand = [torch.as_tensor(c, device=cuda_device)
-                for c in rand_triples(rng, t).T.copy()]
-        flat = [torch.as_tensor(c, device=cuda_device)
-                for c in rand_patterns(rng, (g * mp,)).T.copy()]
-        pv = torch.as_tensor((rng.random(g * mp) < 0.7).astype(np.int32),
-                             device=cuda_device)
-        got = tbindjoin.bindjoin_grouped_cuda(*cand, *flat, pv, groups=g)
-        want = tbindjoin.bindjoin_grouped_plain(*cand, *flat, pv, groups=g)
+        cand = torch.as_tensor(rand_triples(rng, t), device=cuda_device)
+        slots = rand_patterns(rng, (g, mp))
+        slots = np.concatenate(
+            [slots, (rng.random((g, mp, 1)) < 0.7).astype(np.int32)], -1)
+        args = (cand[None], None, torch.as_tensor(slots, device=cuda_device),
+                torch.tensor([-1, -1, -1, 0, 0, 0, 0, 0], dtype=torch.int32,
+                             device=cuda_device))
+        kw = dict(spans=torch.tensor([[[0, t]]], device=cuda_device),
+                  width=t, live=mp, dense=True)
+        got = tbindjoin.bindjoin_grouped_cuda(*args, **kw)
+        want = tbindjoin.bindjoin_grouped_plain(*args, **kw)
         torch.cuda.synchronize()
         for w, o in zip(want, got, strict=True):
             assert torch.equal(w, o)
+
+    @pytest.mark.parametrize("live", [1, 30])
+    @pytest.mark.parametrize("g", [1, 8])
+    @pytest.mark.parametrize("s", [1, 4])
+    @pytest.mark.parametrize("p", [1, 7])
+    @pytest.mark.parametrize("mode", ["spans", "rows"])
+    def test_bindjoin_windows(self, cuda_device, mode, p, s, g, live):
+        """The windowed grouped kernel at the main path's geometry: P
+        pages of S shards of W = 1024 rows, G groups of live slots out of
+        Mp = 128 (a live prefix with a hole, then padding, as
+        marshal_pattern_grid makes them), a base pattern with a bound
+        component and a repeated variable."""
+        rng = np.random.default_rng(p * 1000 + s * 100 + g * 10 + live)
+        w, n, mp = 1024, 3000, 128
+        dev = cuda_device
+        triples = torch.as_tensor(
+            rand_triples(rng, s * n, terms=4).reshape(s, n, 3), device=dev)
+        valid = torch.as_tensor(rng.random((s, n)) < 0.9, device=dev)
+        slots, _ = live_prefix_slots(rng, g, mp, live)
+        # instantiations carry the base pattern's bound predicate; the
+        # last live slot matches every row that passes the prologue, so
+        # a live bound one short would lose rows
+        slots[:, :live, 1] = np.where(slots[:, :live, 1] < 0, -1, 3)
+        slots[:, live - 1, :3] = (-1, 3, -1)
+        slots = torch.as_tensor(slots, device=dev)
+        base = torch.tensor([-1, 3, -1, 0, 1, 0, 0, 0], dtype=torch.int32,
+                            device=dev)
+        where = {}
+        if mode == "spans":
+            lo = rng.integers(0, n, size=(p, s))
+            hi = np.minimum(lo + w, rng.integers(lo, n + 1))
+            where["spans"] = torch.as_tensor(
+                np.stack([lo, hi], -1).astype(np.int64), device=dev)
+        else:
+            rows = np.full((p, s, w), -1, np.int32)
+            for i in range(p):
+                for j in range(s):
+                    k = int(rng.integers(0, w + 1))
+                    rows[i, j, :k] = np.sort(rng.choice(n, k, False))
+            where["rows"] = torch.as_tensor(rows, device=dev)
+        args = (triples, valid, slots, base)
+        got = tbindjoin.bindjoin_grouped_cuda(*args, width=w, live=live,
+                                              **where)
+        again = tbindjoin.bindjoin_grouped_cuda(*args, width=w, live=live,
+                                                **where)
+        want = tbindjoin.bindjoin_grouped_plain(*args, width=w, live=live,
+                                                **where)
+        torch.cuda.synchronize()
+        assert_windows_equal(got, want)
+        # cnt's per-warp atomics land in any order: integer sums agree
+        assert torch.equal(again[2], got[2])
+        assert bool(got[0].any())
+
+    def test_bindjoin_windows_int64_positions(self, cuda_device):
+        """Spans far past 2^31 are positions, not wrapped int32: they lie
+        past the shard's end and keep nothing, on the card as on the
+        plain version."""
+        rng = np.random.default_rng(5)
+        dev = cuda_device
+        triples = torch.as_tensor(rand_triples(rng, 2 * 512).reshape(
+            2, 512, 3), device=dev)
+        slots, live = live_prefix_slots(rng, 2, 128, 4)
+        spans = torch.tensor([[[0, 512], [(1 << 32) + 3, (1 << 32) + 600]],
+                              [[(1 << 31) - 10, 1 << 33], [100, 400]]],
+                             dtype=torch.int64, device=dev)
+        args = (triples, None, torch.as_tensor(slots, device=dev),
+                torch.tensor([-1, -1, -1, 0, 0, 0, 0, 0], dtype=torch.int32,
+                             device=dev))
+        got = tbindjoin.bindjoin_grouped_cuda(*args, spans=spans, width=600,
+                                              live=live)
+        want = tbindjoin.bindjoin_grouped_plain(*args, spans=spans,
+                                                width=600, live=live)
+        torch.cuda.synchronize()
+        assert_windows_equal(got, want)
+        assert not got[0][0, 1].any() and not got[0][1, 0].any()
 
     def test_bindjoin_fused(self, cuda_device):
         rng = np.random.default_rng(41)
@@ -216,3 +318,47 @@ def test_routed_replica_placement_on_card_equals_cpu(cuda_device):
     assert got == run("cpu")
     # the replicated block was charged to both of its holders {0, 2}
     assert got[2][0] > 0 and got[2][2] > 0
+
+
+@pytest.mark.cuda
+def test_sharded_request_one_launch_per_chunk(cuda_device, monkeypatch):
+    """A request of many window pages over four shards: one grouped CUDA
+    launch per chunk (the cap forced to three pages), no tpf_match
+    launch, and fragments, cnt and LaunchRecords equal to the CPU run's."""
+    import dataclasses
+
+    from repro_torch.core import TriplePattern, encode_var
+    from repro_torch.core import federation
+    from repro_torch.kernels.tpf_match import tpf_match_cuda
+
+    v = encode_var
+    rng = np.random.default_rng(9)
+    arr = np.unique(rng.integers(0, 15, size=(3000, 3)).astype(np.int32),
+                    axis=0)
+    om = rng.integers(0, 15, size=(5, 2)).astype(np.int32)
+    monkeypatch.setattr(federation, "MAX_CHUNK_ROWS", 3 * 4 * 16)
+
+    def run(device):
+        sel = federation.ShardedSelector(
+            federation.FederatedStore.build(arr, 4, device=device),
+            window=16)
+        out = [sel.select_with_cnt(TriplePattern(v(0), v(1), v(2)), None)]
+        out += sel.select_same_pattern(TriplePattern(v(0), 3, v(1)),
+                                       [None, om])
+        return ([(d.tobytes(), d.shape, c) for d, c in out],
+                [dataclasses.asdict(r) for r in sel.launches],
+                sel.grouped_chunks)
+
+    grouped = tbindjoin.bindjoin_grouped_cuda
+    before = (grouped.launches, tpf_match_cuda.launches)
+    got = run(cuda_device)
+    launched = (grouped.launches - before[0],
+                tpf_match_cuda.launches - before[1])
+    want = run("cpu")
+    assert got == want
+    pages = len(got[1])
+    assert launched == (got[2], 0)
+    assert got[2] == sum(-(-len(r) // 3) for r in (
+        [x for x in got[1] if x["groups"] == 1],
+        [x for x in got[1] if x["groups"] == 2]))
+    assert pages > got[2] > 2

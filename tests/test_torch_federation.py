@@ -41,6 +41,7 @@ import repro.core.federation as jfed
 import repro.core.kernel_selectors as jks
 import repro.kernels.ops as jops
 from repro.compat import enable_x64
+from repro.core.placement import Placement as JPlacement
 import repro_torch.core as tcore
 import repro_torch.core.federation as tfed
 import repro_torch.core.kernel_selectors as tks
@@ -395,6 +396,100 @@ class TestShardedSelector:
         assert any(r.segments >= 2 for r in tsel.launches)
 
 
+# -- grouped launches in chunks of pages ------------------------------------
+
+
+def selector_placed(pkg, arr, **kw):
+    """A one-shard selector on a placement with no replica: every
+    request takes the routed step."""
+    if pkg is JAX:
+        fed = jfed.FederatedStore.build(
+            arr, one_device_mesh(),
+            placement=JPlacement(boundaries={}))
+    else:
+        from repro_torch.core.placement import Placement
+        fed = tfed.FederatedStore.build(arr, 1, device="cpu",
+                                        placement=Placement(boundaries={}))
+    return pkg.fed.ShardedSelector(fed, **kw)
+
+
+def compact_store():
+    """40 subjects x 25 rows: bindings of (subject, predicate) pairs
+    leave a few live rows in each window page (compact pages)."""
+    s = np.repeat(np.arange(40), 25) + 10
+    p = np.tile(np.arange(25), 40) % 5 + 1
+    o = np.arange(s.size) + 500
+    return np.stack([s, p, o], axis=1).astype(np.int32)
+
+
+class TestChunkedPlans:
+    """Plans of many pages with a small window and the chunk cap forced
+    to two pages, so chunks break mid-plan: static, routed and pruned
+    (compact) plans, grouped and count-only, against the JAX package."""
+
+    @pytest.fixture(autouse=True)
+    def two_page_chunks(self, monkeypatch):
+        monkeypatch.setattr(tfed, "MAX_CHUNK_ROWS", 2 * 16)
+
+    @pytest.mark.parametrize("routed", [False, True])
+    def test_many_pages(self, routed):
+        rng = np.random.default_rng(23)
+        arr = store_array(23, n=900)
+        omegas = [None, rand_omega(rng, 6), rand_omega(rng, 4)]
+
+        def run(pkg):
+            make = selector_placed if routed else selector
+            sel = make(pkg, arr, window=16)
+            res = [sel.select_with_cnt(pat(pkg.core, V(0), V(1), V(2)),
+                                       None)]
+            res += sel.select_same_pattern(pat(pkg.core, V(0), 3, V(1)),
+                                           omegas)
+            res.append((np.empty((0, 3), np.int32), sel.select_count(
+                pat(pkg.core, V(0), V(1), V(2)), None)))
+            return sel, [frag(r) for r in res]
+
+        tsel = assert_same(run)
+        pages = len(tsel.launches)
+        assert pages > 2 * 4              # plans of many pages
+        # two pages (or rounds) per launch: chunks broke mid-plan
+        assert 4 < tsel.grouped_chunks < pages
+
+    def test_count_only_takes_no_compaction(self, monkeypatch):
+        """A count-only plan copies back its cnt and nothing else: no
+        kept-cell compaction runs, on either backend."""
+        arr = store_array(24, n=900)
+        tp = pat(tcore, V(0), V(1), V(2))
+        sel = selector(TORCH, arr, window=16)
+        ksel = tks.KernelSelector(tcore.TripleStore(arr), device="cpu")
+        want = [s.select_with_cnt(tp, None)[1] for s in (sel, ksel)]
+
+        def no_compaction(*args, **kwargs):
+            raise AssertionError("a count-only plan compacted kept cells")
+
+        monkeypatch.setattr(torch, "nonzero", no_compaction)
+        assert [s.select_count(tp, None) for s in (sel, ksel)] == want
+        assert want[0] == want[1] > 0
+
+    def test_pruned_compact_pages(self):
+        arr = compact_store()
+        om = np.array([[12, 2, -1], [20, 3, -1], [31, 2, -1],
+                       [45, 1, -1], [13, 4, -1]], np.int32)
+
+        def run(pkg):
+            sel = selector(pkg, arr, window=16)
+            res = [sel.select_with_cnt(pat(pkg.core, V(0), V(1), V(2)), om),
+                   sel.select_with_cnt(pat(pkg.core, V(0), V(1), V(2)),
+                                       om[:2, :1])]
+            res.append((np.empty((0, 3), np.int32), sel.select_count(
+                pat(pkg.core, V(0), V(1), V(2)), om)))
+            return sel, [frag(r) for r in res]
+
+        tsel = assert_same(run)
+        assert any(r.reclaimed_rows > 0 for r in tsel.launches)
+        assert any(r.pruned and not r.reclaimed_rows
+                   for r in tsel.launches)
+
+
 # -- servers on the sharded backend ------------------------------------------
 
 
@@ -691,6 +786,26 @@ def run(core, FederatedStore, Placement, ReplicaRange, mesh_of, **cfg):
     out["heat_after"] = [frag(live.handle(r)) for r in traffic(40)]
     out["heat_shards"] = live.metrics_snapshot()["shards"]
     out["heat_launches"] = [asdict(r) for r in live._selector.launches]
+
+    # many pages per request (small windows): unpruned, pruned with
+    # compact pages, grouped with a padding group, count-only
+    om_sp = np.array([[110, 2, -1], [130, 3, -1], [150, 1, -1],
+                      [151, 1, -1]], np.int32)
+    om_s = [np.array([[110, -1], [111, -1]], np.int32),
+            np.array([[140, -1]], np.int32)]
+    for window in (4, 16):
+        paged = core.BrTPFServer(store, core.ServerConfig(
+            selector_backend="sharded", shard_window=window, **cfg))
+        sel = paged._selector
+        res = [sel.select_with_cnt(core.TriplePattern(V(0), 2, V(1)), None),
+               sel.select_with_cnt(core.TriplePattern(V(0), V(1), V(2)),
+                                   om_sp)]
+        res += sel.select_same_pattern(core.TriplePattern(V(0), 2, V(1)),
+                                       [None, *om_s])
+        out[f"paged_{window}"] = [[d.tolist(), int(c)] for d, c in res] + [
+            int(sel.select_count(core.TriplePattern(V(0), 1, V(1)), None))]
+        out[f"paged_{window}_launches"] = [asdict(r) for r in sel.launches]
+        out[f"paged_{window}_shards"] = paged.metrics_snapshot()["shards"]
     return out
 '''
 
@@ -724,24 +839,52 @@ def four_shard_runs(tmp_path_factory):
         return tfed.FederatedStore.build(triples, shards, device="cpu",
                                          placement=placement)
 
-    got = ns["run"](tcore, types.SimpleNamespace(build=build), Placement,
-                    ReplicaRange, lambda srv: srv.federated.shards,
-                    shards=4, device="cpu")
-    return json.loads(json.dumps(got)), want
+    def run():
+        return json.loads(json.dumps(ns["run"](
+            tcore, types.SimpleNamespace(build=build), Placement,
+            ReplicaRange, lambda srv: srv.federated.shards, shards=4,
+            device="cpu")))
+
+    got = run()
+    # again with one 4-shard page (or round) of 16 rows per grouped
+    # launch, and four of the 4-row windows, so the chunks break mid-plan
+    cap = tfed.MAX_CHUNK_ROWS
+    tfed.MAX_CHUNK_ROWS = 4 * 16
+    try:
+        chunked = run()
+    finally:
+        tfed.MAX_CHUNK_ROWS = cap
+    return got, want, chunked
 
 
-@pytest.mark.parametrize("key", [
+SCENARIO_KEYS = [
     "manual", "manual_batch", "manual_launches", "manual_shards",
     "manual_pages", "heat_before", "heat_uniform", "heat_bounds",
     "heat_replicas", "heat_shard_n", "heat_after", "heat_shards",
-    "heat_launches"])
+    "heat_launches", "paged_4", "paged_4_launches", "paged_4_shards",
+    "paged_16", "paged_16_launches", "paged_16_shards"]
+
+
+@pytest.mark.parametrize("key", SCENARIO_KEYS)
 def test_four_shards_end_to_end(four_shard_runs, key):
-    got, want = four_shard_runs
+    got, want, _ = four_shard_runs
     assert got[key] == want[key]
 
 
+@pytest.mark.parametrize("key", SCENARIO_KEYS)
+def test_four_shards_in_small_chunks(four_shard_runs, key):
+    """The same scenario with the chunk cap forced down to a few pages:
+    the results and the accounting do not depend on how pages are
+    chunked."""
+    _, want, chunked = four_shard_runs
+    assert chunked[key] == want[key]
+
+
 def test_four_shard_scenario_exercises_routing(four_shard_runs):
-    got, _ = four_shard_runs
+    got, _, _ = four_shard_runs
+    paged = got["paged_4_launches"]
+    assert len(paged) > 8 and any(r["reclaimed_rows"] for r in
+                                  got["paged_16_launches"])
     pages = got["manual_pages"]
     # the replicated block is charged to both holders {0, 2}
     assert pages[0] > 0 and pages[2] > 0

@@ -82,9 +82,9 @@ class TestTpfMatch:
             want = jops.tpf_match_pallas(
                 *(jnp.asarray(cand[:, i]) for i in range(3)),
                 jnp.asarray(pv), interpret=True)
-            got = tpf_match_cuda(*(tt(cand[:, i].copy())
-                                        for i in range(3)), tt(pv))
-            same(want, got)
+            got = tpf_match_cuda(tt(cand), tt(pv))
+            assert got.dtype == torch.uint8
+            same(want, got.to(torch.int32))
 
 
 GROUPED_CASES = [
@@ -124,8 +124,10 @@ class TestBindjoinGrouped:
             same(w, o)
 
     def test_padded_rows_match_reference_kernel(self):
-        """Flat padded layout at the wrapper: zero padding rows match
-        wildcard slots, and idx's no-match value is Mp, not m."""
+        """The wrapper with its prologue off (one page over [0, T), a
+        wildcard base vector, dense outputs) against the padded Pallas
+        kernel: zero padding rows match wildcard slots, and idx's
+        no-match value is Mp, not m."""
         rng = np.random.default_rng(12)
         g, mp = 2, 256
         cand = rand_triples(rng, 2048)
@@ -137,12 +139,163 @@ class TestBindjoinGrouped:
             *(jnp.asarray(cand[:, i]) for i in range(3)),
             *(jnp.asarray(x) for x in flat), jnp.asarray(pv), groups=g,
             interpret=True)
-        got = tbindjoin.bindjoin_grouped_cuda(
-            *(tt(cand[:, i].copy()) for i in range(3)),
-            *(tt(x) for x in flat), tt(pv), groups=g)
+        slots = np.stack([*flat, pv], axis=1).reshape(g, mp, 4)
+        mask, idx, cnt, nmatch = tbindjoin.bindjoin_grouped_cuda(
+            tt(cand)[None], None, tt(slots),
+            tt(tops.pattern_vec_from((-1, -1, -1))),
+            spans=torch.tensor([[[0, 2048]]]), width=2048, live=mp,
+            dense=True)
+        got = [x[0, 0].T for x in (mask.to(torch.int32), idx, nmatch)]
         assert int(got[1].max()) == mp              # some row matched none
         for w, o in zip(want, got, strict=True):
             same(w, o)
+        assert int(cnt.sum()) == int(np.asarray(want[2]).sum())
+
+
+def jax_grouped_windows(triples, valid, pats, pat_valid, base_vec, *,
+                        spans=None, rows=None, width):
+    """The JAX package's grouped steps per (page, shard): the window
+    slice (or the compact step's row gather), ``bindjoin_grouped`` +
+    ``tpf_match`` + the valid and span masks, and the ``cnt`` sum of
+    ``repro/core/federation.py`` (lowerable_windowed_grouped). Every
+    slice goes through one op call. Returns the kept cells as
+    {(p, s, g, key): first}, key the row's position in span mode and its
+    index in the list in row mode, and cnt [P, S, G]."""
+    s_n, n = valid.shape
+    p_n = (spans if rows is None else rows).shape[0]
+    cands, oks, keys = [], [], []
+    for p in range(p_n):
+        for s in range(s_n):
+            if rows is None:
+                lo, hi = (int(x) for x in spans[p, s])
+                start = min(max(lo, 0), max(n - width, 0))
+                pos = start + np.arange(width)
+                ok = (pos >= lo) & (pos < min(lo + width, hi))
+                keys.append(pos)
+            else:
+                pos = np.maximum(rows[p, s], 0)
+                ok = rows[p, s] >= 0
+                keys.append(np.arange(width))
+            cands.append(triples[s, pos])
+            oks.append(ok & valid[s, pos])
+    flat = np.concatenate(cands)
+    keep, idx, nmatch = (np.asarray(x) for x in jops.bindjoin_grouped(
+        jnp.asarray(flat), jnp.asarray(pats), jnp.asarray(pat_valid)))
+    base = np.asarray(jops.tpf_match(jnp.asarray(flat),
+                                     jnp.asarray(base_vec)))
+    mask = keep & base[:, None] & np.concatenate(oks)[:, None]   # (R, G)
+    g = mask.shape[1]
+    cnt = np.where(mask, nmatch, 0).astype(np.int64).reshape(
+        p_n, s_n, width, g).sum(axis=2)
+    key = np.concatenate(keys)
+    cells = {}
+    for row, gi in zip(*np.nonzero(mask), strict=True):
+        ps, _ = divmod(int(row), width)
+        cells[(ps // s_n, ps % s_n, int(gi), int(key[row]))] = \
+            int(idx[row, gi])
+    return cells, cnt
+
+
+def torch_grouped_cells(mask, first, spans=None, rows=None):
+    """The port's kept cells in the same {(p, s, g, key): first} form."""
+    cells = {}
+    for p, s, gi, r in torch.nonzero(mask).tolist():
+        key = r if rows is not None else int(spans[p, s, 0]) + r
+        cells[(p, s, gi, key)] = int(first[p, s, gi, r])
+    return cells
+
+
+# (s, p, o, eq_sp, eq_so, eq_po): wildcard, a bound component, and the
+# three repeated-variable flags
+BASE_VECS = [(-1, -1, -1, 0, 0, 0), (-1, 1, -1, 0, 0, 0),
+             (-1, -1, -1, 1, 0, 0), (-1, -1, -1, 0, 1, 1)]
+
+
+class TestBindjoinWindows:
+    """The grouped kernel's windowed form (its plain version on the CPU)
+    against the JAX package's grouped steps, exactly: P = 3 pages of
+    S = 4 shards, W = 16, three groups (one slot table with a hole, one
+    all padding), spans that straddle a shard's end and pages past it,
+    routed spans with idle (0, 0) shards, and compact row lists."""
+
+    S, N, W, P = 4, 40, 16, 3
+
+    def inputs(self, seed):
+        rng = np.random.default_rng(seed)
+        triples = rng.integers(0, 4, size=(self.S, self.N, 3)).astype(
+            np.int32)
+        valid = rng.random((self.S, self.N)) < 0.9
+        pats = rand_patterns(rng, (3, 5), terms=4)
+        pat_valid = np.ones((3, 5), np.int32)
+        pat_valid[0, [1, 3, 4]] = 0      # a hole below the last live slot
+        pat_valid[1, 4] = 0
+        pat_valid[2] = 0                 # a padding group: no live slot
+        return triples, valid, pats, pat_valid
+
+    def spans(self, mode, rng):
+        if mode == "routed":
+            lo = rng.integers(0, self.N - self.W, size=(self.P, self.S))
+            hi = lo + rng.integers(0, self.W + 1, size=(self.P, self.S))
+            idle = rng.random((self.P, self.S)) < 0.3
+            lo[idle] = hi[idle] = 0
+            return np.stack([lo, hi], axis=-1).astype(np.int64)
+        # the windowed step: range [start, end) per shard, pages 0, 2, 3
+        # of W rows; the last pages straddle the shard's end or lie past
+        # the range
+        start = np.array([0, 5, 17, 30])
+        end = np.array([40, 38, 40, 40])
+        pages = np.array([0, 2, 3])
+        lo = start[None, :] + pages[:, None] * self.W
+        hi = np.minimum(lo + self.W, end[None, :])
+        return np.stack([lo, hi], axis=-1).astype(np.int64)
+
+    @pytest.mark.parametrize("base", BASE_VECS)
+    @pytest.mark.parametrize("mode", ["windowed", "routed", "rows"])
+    def test_matches_jax_grouped_steps(self, mode, base):
+        rng = np.random.default_rng(BASE_VECS.index(base) + 10 * len(mode))
+        triples, valid, pats, pat_valid = self.inputs(len(mode))
+        base_vec = np.array([*base, 0, 0], np.int32)
+        spans = rows = None
+        if mode == "rows":
+            rows = np.full((self.P, self.S, self.W), -1, np.int32)
+            for p in range(self.P):
+                for s in range(self.S):
+                    k = int(rng.integers(0, self.W + 1))
+                    rows[p, s, :k] = np.sort(rng.choice(self.N, k, False))
+        else:
+            spans = self.spans(mode, rng)
+        cells, cnt = jax_grouped_windows(triples, valid, pats, pat_valid,
+                                         base_vec, spans=spans, rows=rows,
+                                         width=self.W)
+        mp = tops.padded_pattern_slots(5)
+        slots, live = tops.pack_slots(pats, pat_valid, mp)
+        assert live == 4                 # one past the last valid slot
+        mask, first, tcnt, _ = tops.bindjoin_grouped_cuda(
+            tt(triples), tt(valid), tt(slots), tt(base_vec), live=live,
+            width=self.W, spans=None if spans is None else tt(spans),
+            rows=None if rows is None else tt(rows))
+        assert mask.shape == (self.P, self.S, 3, self.W)
+        assert mask.dtype == torch.uint8 and tcnt.dtype == torch.int64
+        got = torch_grouped_cells(mask, first, spans=spans, rows=rows)
+        assert got == cells
+        np.testing.assert_array_equal(tcnt.numpy(), cnt)
+        assert not mask[:, :, 2].any()   # the padding group keeps nothing
+        if base == BASE_VECS[0]:
+            assert cells                 # the case keeps some rows
+
+    def test_count_only_sum_equals_cells(self):
+        """cnt is a per-(page, shard, group) sum: reordering pages
+        reorders it and changes no value."""
+        triples, valid, pats, pat_valid = self.inputs(3)
+        slots, live = tops.pack_slots(pats, pat_valid, 128)
+        spans = self.spans("windowed", None)
+        out = [tops.bindjoin_grouped_cuda(
+            tt(triples), tt(valid), tt(slots),
+            tt(tops.pattern_vec_from((-1, -1, -1))), live=live,
+            width=self.W, spans=tt(np.ascontiguousarray(x)))
+            for x in (spans, spans[::-1])]
+        np.testing.assert_array_equal(out[0][2].numpy(),
+                                      out[1][2].numpy()[::-1])
 
 
 FUSED_CASES = [

@@ -197,12 +197,10 @@ def test_async_clients_match_reference(datasets):
     assert tsrv.counters.fused_launches >= 1
 
 
-def test_sharded_backend_is_not_ported_yet():
+def test_sharded_backend_matches_reference():
     """The sharded backend's server equals the reference's on the slice
     (solutions, request counts and transfer), and its config is
-    accepted with the JAX package's defaults. The name dates from when
-    the port refused this backend; it is kept so the test keeps its
-    identity."""
+    accepted with the JAX package's defaults."""
     cfg = tcore.ServerConfig(selector_backend="sharded", device="cpu",
                              shards=2)
     assert cfg.selector_backend == "sharded"
