@@ -17,9 +17,10 @@ printing its own lines:
 3. kernels: each hand-written kernel against its plain PyTorch version
    on random inputs at the largest shape the main paths give it, exact
    equality, with the kernel's and the plain version's times and the
-   card's bound for the same work; the grouped kernel also at one
-   4 x 1024-row window, the shape the earlier design launched it (and
-   tpf_match) at once per page;
+   card's bound for the same work (the fused kernel at the MAX_FUSED_*
+   ceilings through the reference op's contract, ``ops.bindjoin_fused``);
+   the grouped kernel also at one 4 x 1024-row window, the shape the
+   earlier design launched it (and tpf_match) at once per page;
 4. slice: a WatDiv-like store at 600x the default scale (about 9.25M
    triples, the paper's 10M-triple WatDiv cut only to keep term ids
    under the store's 21-bit packing limit), 8 queries of the L, S, F
@@ -36,13 +37,15 @@ printing its own lines:
    partition) on each query's first two triple patterns. Everything
    must equal the numpy backend or the host selector, and a sequential
    run must make at most one grouped launch per chunk of pages and no
-   tpf_match launch. The sequential runs of phases 4 and 5 report wall
-   ms per LaunchRecord, and both backends CUDA launches per
-   LaunchRecord;
+   tpf_match launch, and the async run exactly one fused launch per
+   chunk of an order group's rounds, fewer than its fused rounds. The
+   runs of phases 4 and 5 report wall ms per LaunchRecord, and both
+   backends CUDA launches per LaunchRecord;
 6. path kernels: each kernel against its plain version again, at the
    launch geometries each of phases 4 and 5 gave it most (the wrappers'
    ``shapes`` tallies), with times and bounds beside that path's
-   launches.
+   launches, and the fused kernel at the largest chunk the sharded
+   async run launched.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -159,22 +162,21 @@ def live_bounds(slots):
     return [int(np.flatnonzero(v)[-1]) + 1 if v.any() else 0 for v in valid]
 
 
-def kernel_case(torch, bj, tm, gen, name, shape, shards=0):
+def kernel_case(torch, bj, tm, ops, gen, name, shape):
     """Random inputs for kernel ``name`` at launch geometry ``shape``
     (the key of the wrapper's ``shapes`` tally: ``(T,)``, ``(T, M)``,
-    ``(P, S, W, G, Mp, live)`` or ``(T, S, G, Mp)``). Returns the
-    wrapper call, the plain version's call, the view of an output that
-    the two must agree on, the bytes of the bound (or a function of the
-    plain output giving them), its operations, and facts about the
-    inputs. A fused case with ``shards`` lays its segments out as the
-    sharded step does (each shard's S segments of T / (shards * S) rows,
-    every tile live); without, its tiles get random segments or -1
-    (dead), as a kernel-backend stream has. A grouped case reads S
-    shards of P full pages of W rows, every row of its span (the window
+    ``(P, S, W, G, Mp, live)`` grouped or ``(P, S, W, G, Mp, live,
+    Sseg)`` fused). Returns the wrapper call, the plain version's call,
+    the view of an output that the two must agree on, the bytes of the
+    bound (or a function of the plain output giving them), its
+    operations, and facts about the inputs. A grouped or fused case reads
+    S shards of P full pages of W rows, every row of its span (the window
     lies in the pattern's range, so every valid row passes the base
     test), against slot tables made as ``marshal_pattern_grid`` makes
-    them: each group a live prefix (the first group ``live`` slots, the
-    others fewer), then padding."""
+    them; a fused case's pages cycle through its Sseg segments. The case
+    ``bindjoin_fused_ops`` is the reference op's fused bind-join at
+    ``(T, Sseg, G, M)`` (random slots with holes, dead tiles), mapped
+    onto the fused kernel by ``ops.fused_tile_pages``."""
     dev = "cuda"
 
     def same(out):
@@ -193,6 +195,10 @@ def kernel_case(torch, bj, tm, gen, name, shape, shards=0):
         out.append((randint(0, 10, n) < 8).to(torch.int32))
         return out
 
+    def windowed(mask, first, cnt, nmatch):
+        return [mask, cnt, torch.where(mask.bool(), first, -1)] + (
+            [] if nmatch is None else [first, nmatch])
+
     if name == "tpf_match":
         t = shape[0]
         cand = torch.stack([randint(0, 4, t) for _ in range(3)], dim=1)
@@ -201,87 +207,123 @@ def kernel_case(torch, bj, tm, gen, name, shape, shards=0):
         return (lambda: [tm.tpf_match_cuda(cand, pv)],
                 lambda: [tm.tpf_match_plain(cand, pv)], same,
                 13 * t + 32, OPS_PER_ROW * t, {})
-    if name == "bindjoin_grouped":
-        p, s, w, g, mp, live = shape
+    if name in ("bindjoin_grouped", "bindjoin_fused"):
+        p, s, w, g, mp, live = shape[:6]
+        segs = shape[6] if name == "bindjoin_fused" else 1
         n = p * w
         pred = torch.full((s * n,), 7, dtype=torch.int32, device=dev)
         triples = torch.stack([randint(0, 64, s * n), pred,
                                randint(0, 64, s * n)], dim=1) \
             .reshape(s, n, 3)
         valid = (randint(0, 10, s * n) < 9).reshape(s, n)
-        base = torch.tensor([-1, 7, -1, 0, 0, 0, 0, 0], dtype=torch.int32,
-                            device=dev)
-        sl, sp, so, _ = slots(g * mp, 64)
+        base = torch.tensor([[-1, 7, -1, 0, 0, 0, 0, 0]] * segs,
+                            dtype=torch.int32, device=dev)
+        # slot tables as marshal_pattern_grid makes them: each group a
+        # live prefix (the first group live slots, the others fewer),
+        # then padding; every slot binds the predicate 7 or leaves it
+        # wild (a segment's table the grouped case's, from the same draws)
+        sl, sp, so, _ = slots(segs * g * mp, 64)
         table = torch.stack([sl, torch.where(sp < 0, sp, 7), so,
-                             torch.zeros_like(sl)], dim=1).reshape(g, mp, 4)
-        fill = np.random.default_rng(g * mp + live).integers(
-            1, live + 1, size=g) if live else np.zeros(g, int)
-        fill[0] = live
-        for gi in range(g):
-            table[gi, :int(fill[gi]), 3] = 1
+                             torch.zeros_like(sl)], dim=1) \
+            .reshape(segs, g, mp, 4)
+        rng = np.random.default_rng(segs * g * mp + live)
+        for si in range(segs):
+            fill = rng.integers(1, live + 1, size=g) if live \
+                else np.zeros(g, int)
+            fill[0] = live
+            for gi in range(g):
+                table[si, gi, :int(fill[gi]), 3] = 1
         lo = torch.arange(p, device=dev, dtype=torch.int64)[:, None] * w
         spans = torch.stack([lo.expand(p, s), (lo + w).expand(p, s)],
                             dim=-1).contiguous()
-        args = (triples, valid, table, base)
         kw = dict(spans=spans, width=w, live=live)
+        if name == "bindjoin_grouped":
+            args = (triples, valid, table[0], base[0])
+            fn, plain = bj.bindjoin_grouped_cuda, bj.bindjoin_grouped_plain
+        else:
+            args = (triples, valid, table, base)
+            kw["seg_of_page"] = torch.arange(
+                p, dtype=torch.int32, device=dev) % segs
+            fn, plain = bj.bindjoin_fused_cuda, bj.bindjoin_fused_plain
         rows = p * s * w
-        rows_ok = int(valid.sum())          # every span is a full page
-        live_cells = sum(live_bounds(table))
-
-        def view(out):
-            mask, first, cnt, _ = out
-            return [mask, cnt, torch.where(mask.bool(), first, -1)]
+        # every span is a full page: a page's rows that pass are its valid
+        # rows, each against its own segment's live slots
+        ok_per_page = valid.reshape(s, p, w).sum(dim=(0, 2)).cpu().numpy()
+        live_cells = [sum(live_bounds(table[si])) for si in range(segs)]
+        cells = sum(int(k) * live_cells[i % segs]
+                    for i, k in enumerate(ok_per_page))
 
         def nbytes(want):
             return (13 * rows + rows * g + 4 * int(want[0].sum())
-                    + 8 * p * s * g + 16 * live_cells + 16 * p * s + 32)
+                    + 8 * p * s * g + 16 * sum(live_cells) + 16 * p * s
+                    + 4 * p + 32 * segs)
 
-        return (lambda: bj.bindjoin_grouped_cuda(*args, **kw),
-                lambda: bj.bindjoin_grouped_plain(*args, **kw), view,
-                nbytes, OPS_PER_ROW * rows
-                + OPS_PER_CELL * rows_ok * live_cells,
-                dict(rows_ok=rows_ok, live_cells=live_cells))
+        return (lambda: fn(*args, **kw), lambda: plain(*args, **kw),
+                lambda out: windowed(*out), nbytes,
+                OPS_PER_ROW * rows + OPS_PER_CELL * cells,
+                dict(rows_ok=int(ok_per_page.sum()), live_cells=live_cells))
+    if name == "bindjoin_fused_ops":
+        t, segs, g, m = shape
+        cand = torch.stack([randint(0, 64, t) for _ in range(3)], dim=1)
+        seg = randint(-1, segs, t // 256)
+        pats = slots(segs * g * m, 64)
+        patterns = torch.stack(pats[:3], dim=1).reshape(segs, g, m, 3)
+        pat_valid = pats[3].reshape(segs, g, m)
+        got = ops.bindjoin_fused(cand, seg, patterns, pat_valid)
+        want = ops.bindjoin_fused(cand.cpu(), seg.cpu(), patterns.cpu(),
+                                  pat_valid.cpu())
+        if not all(torch.equal(a.cpu(), b)
+                   for a, b in zip(got, want, strict=True)):
+            raise SmokeFailure("ops.bindjoin_fused on the card differs "
+                               "from its plain version")
+        args, kw = ops.fused_tile_pages(cand, seg, patterns, pat_valid)
+        # each live tile's rows against its own segment's live slots
+        per_seg = [sum(live_bounds(args[2][si])) for si in range(segs)]
+        seg_h = seg.cpu().numpy()
+        rows_ok = 256 * int((seg_h >= 0).sum())
+        cells = 256 * sum(per_seg[x] for x in seg_h if x >= 0)
+
+        def nbytes(want):
+            # rows of 12 bytes (no valid flags); dense outputs (mask,
+            # first and nmatch for every row and group); per page its
+            # span, segment and G cnt sums; the tables
+            pages = t // 256
+            return (12 * t + 9 * t * g + pages * (20 + 8 * g)
+                    + 16 * segs * g * args[2].shape[2] + 32 * segs)
+
+        return (lambda: bj.bindjoin_fused_cuda(*args, **kw),
+                lambda: bj.bindjoin_fused_plain(*args, **kw),
+                lambda out: windowed(*out), nbytes,
+                OPS_PER_ROW * t + OPS_PER_CELL * cells,
+                dict(rows_ok=rows_ok, mapped_shape=[
+                    t // 256, 1, 256, g, args[2].shape[2], kw["live"],
+                    segs]))
     t = shape[0]
     cand = [randint(0, 64, t) for _ in range(3)]
-    if name == "bindjoin":
-        m = shape[1]
-        pats = slots(m, 64)
-        pats[3][MAX_MPR:] = 0          # maxMpR valid slots, then padding
-        return (lambda: bj.bindjoin_cuda(*cand, *pats),
-                lambda: bj.bindjoin_plain(*cand, *pats), same,
-                20 * t + 16 * m, OPS_PER_CELL_UNGROUPED * t * m, {})
-    s, g, mp = shape[1:]
-    tiles = t // 256
-    if shards:
-        seg = torch.arange(s, dtype=torch.int32, device=dev) \
-            .repeat_interleave(tiles // (shards * s)).repeat(shards)
-    else:
-        seg = randint(-1, s, tiles)
-    pats = slots(s * g * mp, 64)
-    live_rows = int((seg >= 0).sum()) * 256
-    return (lambda: bj.bindjoin_fused_cuda(seg, *cand, *pats, segments=s,
-                                           groups=g),
-            lambda: bj.bindjoin_fused_plain(seg, *cand, *pats, segments=s,
-                                            groups=g), same,
-            12 * t + 4 * tiles + 16 * s * g * mp + 12 * t * g,
-            OPS_PER_CELL * live_rows * g * mp, dict(live_rows=live_rows))
+    m = shape[1]
+    pats = slots(m, 64)
+    pats[3][MAX_MPR:] = 0          # maxMpR valid slots, then padding
+    return (lambda: bj.bindjoin_cuda(*cand, *pats),
+            lambda: bj.bindjoin_plain(*cand, *pats), same,
+            20 * t + 16 * m, OPS_PER_CELL_UNGROUPED * t * m, {})
 
 
-def measure(torch, bj, tm, gen, name, shape, shards=0):
+def measure(torch, bj, tm, ops, gen, name, shape):
     """One kernel case: exact agreement with the plain version, the
     kernel's and the plain version's device ms, and the bound."""
-    fn, plain_fn, view, nbytes, ops, facts = kernel_case(
-        torch, bj, tm, gen, name, shape, shards)
+    fn, plain_fn, view, nbytes, n_ops, facts = kernel_case(
+        torch, bj, tm, ops, gen, name, shape)
     got, want = view(fn()), view(plain_fn())
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, want)
     ms = time_ms(torch, fn, 20)
     plain = time_ms(torch, plain_fn, 3)
-    b, by = bound_ms(nbytes(want) if callable(nbytes) else nbytes, ops)
+    b, by = bound_ms(nbytes(want) if callable(nbytes) else nbytes, n_ops)
     r = dict(shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain,
              bound_ms=b, bound_by=by, kept=int(want[0].sum()), **facts)
     log(f"kernel {name}: shape {list(shape)}"
-        + (f" ({shards} shards)" if shards else "")
+        + (f" as {facts['mapped_shape']}" if "mapped_shape" in facts
+           else "")
         + f" max_abs_err={err} ms={ms:.4f} plain_ms={plain:.4f} "
         f"bound_ms={b:.4f} ({by}) "
         "library_ms=null (no single PyTorch call computes it)")
@@ -291,7 +333,7 @@ def measure(torch, bj, tm, gen, name, shape, shards=0):
     return r
 
 
-def check_kernels(torch, bj, tm, t_full: int):
+def check_kernels(torch, bj, tm, ops, t_full: int):
     """Phase 3: each kernel against its plain version at the largest
     shape a main path gives it (``t_full``: the sharded store's rows,
     shards x shard_n, which execute_full streams at once). Returns those
@@ -300,54 +342,60 @@ def check_kernels(torch, bj, tm, t_full: int):
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = {
         # tpf_match at execute_full's shape (the only path launching it)
-        "tpf_match": measure(torch, bj, tm, gen, "tpf_match", (t_full,)),
+        "tpf_match": measure(torch, bj, tm, ops, gen, "tpf_match",
+                             (t_full,)),
         # bindjoin_grouped at the chunk cap (federation.MAX_CHUNK_ROWS):
         # 1024 pages x 4 shards x 1024 rows, G = 8 groups of Mp = 128
         # slots, maxMpR = 30 of them live
-        "bindjoin_grouped": measure(torch, bj, tm, gen, "bindjoin_grouped",
+        "bindjoin_grouped": measure(torch, bj, tm, ops, gen,
+                                    "bindjoin_grouped",
                                     (1024, SHARDS, 1024, 8, 128, MAX_MPR)),
-        # bindjoin_fused at the MAX_FUSED_* ceilings: 131072 rows, 16
-        # segments x 2 groups x 1024 slots = 32768 slots
-        "bindjoin_fused": measure(torch, bj, tm, gen, "bindjoin_fused",
+        # bindjoin_fused at the MAX_FUSED_* ceilings, through the
+        # reference op's contract: 131072 rows, 16 segments x 2 groups x
+        # 1024 slots = 32768 slots (the shape the flat-stream fused
+        # kernel of the first design was timed at)
+        "bindjoin_fused": measure(torch, bj, tm, ops, gen,
+                                  "bindjoin_fused_ops",
                                   (131_072, 16, 2, 1024)),
         # bindjoin (ungrouped) at execute_full's shape: every shard's
         # whole partition, padded to 1024 rows, against maxMpR = 30
         # slots padded to M = 128
-        "bindjoin": measure(torch, bj, tm, gen, "bindjoin",
+        "bindjoin": measure(torch, bj, tm, ops, gen, "bindjoin",
                             (-(-t_full // 1024) * 1024, 128)),
     }
     # one window of 4 shards x 1024 rows, G = 1, Mp = 128, one live slot
-    single = measure(torch, bj, tm, gen, "bindjoin_grouped",
+    single = measure(torch, bj, tm, ops, gen, "bindjoin_grouped",
                      (1, SHARDS, 1024, 1, 128, 1))
     return kernels, single
 
 
-def check_path_geometries(torch, bj, tm, shapes_per_path):
+def check_path_geometries(torch, bj, tm, ops, shapes_per_path):
     """Phase 6: each kernel against its plain version at the launch
     geometries each main path gave it (from the wrappers' ``shapes``
     tallies), most launched first, until they cover 90% of that path's
-    launches of the kernel (at most 3). A fused geometry of the sharded
-    path is laid out per shard as its step lays it out. Returns, per
+    launches of the kernel (at most 3), and the fused kernel also at the
+    largest chunk (most rows) the sharded path launched. Returns, per
     kernel, per path: launches, share covered, the launches x (ms -
     bound) excess of the covered geometries, and each geometry's
-    measurement."""
+    measurement; and the largest sharded fused chunk's measurement."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     seen = {}
     out = {}
+
+    def timed(name, shape):
+        if (name, shape) not in seen:
+            seen[(name, shape)] = measure(torch, bj, tm, ops, gen, name,
+                                          shape)
+        return seen[(name, shape)]
+
     for path, per_kernel in shapes_per_path.items():
-        shards = SHARDS if path == "sharded backend" else 0
         for name, tally in per_kernel.items():
             total = sum(tally.values())
             if not total:
                 continue
             geoms, covered, excess = [], 0, 0.0
             for shape, n in tally.most_common(3):
-                key = (name, shape, shards if name == "bindjoin_fused"
-                       else 0)
-                if key not in seen:
-                    seen[key] = measure(torch, bj, tm, gen, name, shape,
-                                        key[2])
-                r = seen[key]
+                r = timed(name, shape)
                 geoms.append(dict(r, launches=n))
                 covered += n
                 excess += n * (r["ms"] - r["bound_ms"])
@@ -360,7 +408,15 @@ def check_path_geometries(torch, bj, tm, shapes_per_path):
                 f"{100 * covered / total:.1f}% at the {len(geoms)} "
                 f"geometries timed, launches x (ms - bound) "
                 f"{excess:.1f} ms")
-    return out
+    # main() has checked that the sharded path launched the fused kernel
+    fused = shapes_per_path["sharded backend"]["bindjoin_fused"]
+    largest = max(fused, key=lambda k: (k[0] * k[1] * k[2], k))
+    chunk = dict(timed("bindjoin_fused", largest), launches=fused[largest])
+    log(f"path sharded backend: bindjoin_fused largest chunk "
+        f"{list(largest)} ({chunk['launches']} launches): "
+        f"ms={chunk['ms']:.4f} bound_ms={chunk['bound_ms']:.4f} "
+        f"({chunk['bound_by']}) plain_ms={chunk['plain_ms']:.4f}")
+    return out, chunk
 
 
 def pick_queries(watdiv, data):
@@ -658,23 +714,42 @@ def run_sharded(torch, core, data, queries, nres, counts, reset_counts):
 
     aserver = core.BrTPFServer(data.store,
                                scfg.replace(placement_policy="static"))
-    n0 = len(aserver._selector.launches)
+    asel = aserver._selector
+    n0, f0 = len(asel.launches), asel.fused_chunks
     reset_counts()
     front, ares, secs = drive_async(torch, core, aserver, queries)
     launched = counts("sharded backend")
     check_s = check_async(core, data.store, front, ares, queries, nres,
                           "sharded")
     stats = front.front.stats
+    records = asel.launches[n0:]
+    # a fused round of two or more segments (the server's fused launches)
+    fused_records = sum(r.segments >= 2 for r in records)
+    fused_chunks = asel.fused_chunks - f0
     details["async"] = dict(
         seconds=secs, requests=len(front.log),
-        launch_records=len(aserver._selector.launches) - n0,
-        launches=launched, flushes=stats.flushes,
-        fused_launches=aserver.counters.fused_launches, check_s=check_s)
+        launch_records=len(records), launches=launched,
+        flushes=stats.flushes, fused_chunks=fused_chunks,
+        fused_launch_records=fused_records,
+        fused_launches=aserver.counters.fused_launches,
+        ms_per_launch_record=1e3 * secs / max(len(records), 1),
+        check_s=check_s)
     log(f"sharded async: {ASYNC_CLIENTS} clients, {len(front.log)} requests "
-        f"in {secs:.1f}s, {stats.flushes} flushes, "
-        f"{aserver.counters.fused_launches} fused launches, "
-        f"{details['async']['launch_records']} LaunchRecords, every fragment "
-        f"equals the numpy backend's ({check_s:.1f}s); launches {launched}")
+        f"in {secs:.1f}s, {stats.flushes} flushes, {len(records)} "
+        f"LaunchRecords ({details['async']['ms_per_launch_record']:.3f} ms "
+        "of wall time per LaunchRecord), every fragment equals the numpy "
+        f"backend's ({check_s:.1f}s); launches {launched}")
+    log(f"sharded async fused: {fused_chunks} fused chunks, "
+        f"{launched['bindjoin_fused']} bindjoin_fused CUDA launches, "
+        f"{fused_records} fused LaunchRecords (rounds of two or more "
+        "segments)")
+    if launched["bindjoin_fused"] != fused_chunks \
+            or not 0 < fused_chunks < fused_records:
+        raise SmokeFailure(
+            f"sharded async: {launched['bindjoin_fused']} bindjoin_fused "
+            f"launches for {fused_chunks} fused chunks and {fused_records} "
+            "fused LaunchRecords (one launch per chunk, fewer chunks than "
+            "rounds)")
 
     t0 = time.perf_counter()
     server.repartition()
@@ -763,6 +838,7 @@ def main() -> int:
     from repro_torch import core
     from repro_torch.data import watdiv
     from repro_torch.kernels import build
+    from repro_torch.kernels import ops
     bj = importlib.import_module("repro_torch.kernels.bindjoin")
     tm = importlib.import_module("repro_torch.kernels.tpf_match")
 
@@ -790,7 +866,7 @@ def main() -> int:
     data, generate_s = generate_data(watdiv)
     ends["data"] = time.perf_counter() - t_start
     kernels, single_window = check_kernels(
-        torch, bj, tm, SHARDS * -(-len(data.store) // SHARDS))
+        torch, bj, tm, ops, SHARDS * -(-len(data.store) // SHARDS))
     ends["kernels"] = time.perf_counter() - t_start
 
     wrappers = {"tpf_match": tm.tpf_match_cuda,
@@ -853,7 +929,8 @@ def main() -> int:
 
     # Not part of the counted main paths: each kernel at the geometries
     # the paths gave it.
-    at_paths = check_path_geometries(torch, bj, tm, shapes_per_path)
+    at_paths, largest_chunk = check_path_geometries(torch, bj, tm, ops,
+                                                    shapes_per_path)
     ends["path_kernels"] = time.perf_counter() - t_start
     log("phases end at (s): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in ends.items()))
@@ -895,11 +972,16 @@ def main() -> int:
                 for g in v["geometries"]]) for p, v in paths.items()},
             largest={k: big[k] for k in ("shape", "ms", "plain_ms",
                                          "bound_ms", "bound_by")}))
+        if name == "bindjoin_fused":
+            entries[-1]["largest_chunk"] = {
+                k: largest_chunk[k] for k in ("shape", "launches", "ms",
+                                              "plain_ms", "bound_ms",
+                                              "bound_by")}
     line = {"kernels": entries}
 
     details.update(device=kind, nvidia_smi=smi, build_s=build_s,
                    kernels=kernels, single_window=single_window,
-                   kernels_at_paths=at_paths,
+                   kernels_at_paths=at_paths, largest_chunk=largest_chunk,
                    total_s=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -9,8 +9,11 @@ leading *logical shard axis* of every store tensor (``[shards, shard_n,
 axis. A grouped request makes one bind-join launch per chunk of its
 window pages, over every shard at once (:meth:`FederatedStore.grouped_step`:
 the kernel reads the shards' rows where they lie and runs the base
-pattern's match in its prologue); the full-shard and fused steps make
-one launch per kernel over all shards' rows laid end to end and return
+pattern's match in its prologue). A heterogeneous batch makes one fused
+bind-join launch per chunk of an order group's (round, segment) pages
+(:meth:`FederatedStore.fused_step`: the same kernel, each page against
+its own segment's slots and base pattern). The full-shard step makes
+one launch per kernel over all shards' rows laid end to end and returns
 the reference's post-all-gather shapes. Multiple GPUs are not used.
 
 A request -- (triple pattern, attached mappings) -- is evaluated by
@@ -36,8 +39,7 @@ import torch
 
 from ..kernels import ops as kops
 from .fragments import FragmentStore, fragment_key
-from .kernel_selectors import (_EMPTY, FUSED_BT, FusedSegment,
-                               LaunchRecord, _fused_base_mask,
+from .kernel_selectors import (_EMPTY, FusedSegment, LaunchRecord,
                                consult_fragments, consult_segment,
                                finish_segment, fusion_legality,
                                grouped_results, marshal_pattern_grid,
@@ -617,86 +619,50 @@ class FederatedStore:
                 else rows[p, s, r].to(torch.int64)
             return index.triples[s, pos]
 
-        return grouped_results(mask, first, cnt, groups, count_only,
-                               payload=kept_rows)
+        cnts, kept = grouped_results(mask, first, cnt, groups, count_only,
+                                     payload=kept_rows)
+        return cnts[0], kept[0] if kept else []
 
-    def lowerable_windowed_fused(self, window: int, segs: int,
-                                 groups: int):
-        """Cross-pattern fused windowed step: S segments, one launch.
+    def fused_step(self, index: ShardIndex, slots: torch.Tensor,
+                   base_vecs: torch.Tensor, live: int, groups: int,
+                   width: int, spans: torch.Tensor,
+                   seg_of_page: torch.Tensor,
+                   gathered: Optional[torch.Tensor] = None,
+                   count_only: bool = False
+                   ) -> Tuple[np.ndarray, List[List[Tuple[np.ndarray,
+                                                         np.ndarray]]]]:
+        """The fused windowed step over a chunk of P window pages of
+        several segments (the requests of one index order).
 
-        Per round, every shard slices ONE window of *each* segment's
-        bound-prefix range under this step's index order; the windows of
-        all shards and segments are laid end to end as one tile-aligned
-        stream (shard-major) and the fused kernel resolves each tile's
-        segment from ``seg_of_tile`` (the per-shard tile -> segment map,
-        repeated per shard). Per-segment ``(lo, hi)`` keys and page
-        indexes arrive as int64/int32 [S] host vectors; a page index of
-        -1 deactivates its segment for the round (its rows are masked
-        out of every group). Windows are padded to the next power of two
-        ``wp`` with rows that are never ``ok``; the CUDA kernel's tile is
-        256 rows, so a segment's stream extent is at least one tile.
+        One fused bind-join launch over the chunk's pages of every shard,
+        reading ``index``'s rows where they lie: page p is a window of
+        segment ``seg_of_page[p]`` (int32 [P] on the device) with owned
+        spans ``spans[p]`` (int64 [P, S, 2]), matched against that
+        segment's slot table (``slots`` int32 [Sseg, G, Mp, 4]) and base
+        pattern (``base_vecs`` int32 [Sseg, 8]). Pages of a segment that
+        only counts (0 in ``gathered``, uint8 [P]; None: none) keep no
+        cell. One
+        compaction and one device-to-host copy follow; a chunk that only
+        counts copies back only ``cnt``.
 
-        Returns (page, first, counts, cnts) shaped
-        (shards, S, G, wp[, 3]) / (shards, S, G) -- no column projection:
-        segments bind different components, so the full triples travel
-        back.
+        Returns ``cnt`` (int64 [Sseg, groups]) and, unless
+        ``count_only``, per segment and group its kept rows (int32
+        [K, 3]) and their first-matching slots, in round, shard, row
+        order (pages come in round order).
         """
-        window = max(1, min(window, self.shard_n))
-        wp = _pow2(window)
-        key = ("fused", window, segs, groups)
-        fn = self._steps.get(key)
-        if fn is not None:
-            return fn
-        wpk = max(wp, FUSED_BT)         # stream extent of one segment
-        tiles_per_seg = wpk // FUSED_BT
+        mask, first, cnt, _ = kops.bindjoin_fused_cuda(
+            index.triples, index.valid, slots, base_vecs, spans=spans,
+            seg_of_page=seg_of_page, width=width, live=live)
+        if gathered is not None and not count_only:
+            mask *= gathered[:, None, None, None]
 
-        def step(triples, valid, keys, pats, pat_valid, base_vecs,
-                 lo_keys, hi_keys, page_idx):
-            dev = triples.device
-            s = triples.shape[0]
-            wins, oks = [], []
-            for si in range(segs):
-                pi = int(page_idx[si])
-                start, end = _search(keys, int(lo_keys[si]),
-                                     int(hi_keys[si]))
-                win, wv, ins = _window_slice(triples, valid, start, end,
-                                             pi, window)
-                ok = wv & ins & (pi >= 0)
-                if wpk > window:
-                    win = torch.cat([win, win.new_zeros(
-                        (s, wpk - window, 3))], dim=1)
-                    ok = torch.cat([ok, ok.new_zeros((s, wpk - window))],
-                                   dim=1)
-                wins.append(win)
-                oks.append(ok)
-            stream = torch.stack(wins, dim=1)           # (Sh, S, wpk, 3)
-            flat = stream.reshape(-1, 3)
-            seg_of_tile = torch.arange(
-                segs, dtype=torch.int32, device=dev).repeat_interleave(
-                    tiles_per_seg).repeat(s)
-            keep, idx, nmatch = kops.bindjoin_fused(
-                flat, seg_of_tile, pats, pat_valid, bt=FUSED_BT)
-            seg_of_row = seg_of_tile.repeat_interleave(FUSED_BT)
-            base = _fused_base_mask(flat, seg_of_row, base_vecs)
-            ok = torch.stack(oks, dim=1).reshape(-1)
-            mask = (keep & base[:, None] & ok[:, None]).reshape(
-                s, segs, wpk, groups)
-            cnts = torch.where(mask, nmatch.reshape(mask.shape),
-                               0).sum(dim=2)              # (Sh, S, G)
-            rows, counts = kops.compact_mask(mask.transpose(2, 3), wp)
-            safe = rows.clamp(min=0).long()             # (Sh, S, G, wp)
-            sh = torch.arange(s, device=dev)[:, None, None, None]
-            sg = torch.arange(segs, device=dev)[None, :, None, None]
-            page = stream[sh, sg, safe]                 # (Sh, S, G, wp, 3)
-            first = torch.gather(
-                idx.reshape(s, segs, wpk, groups).transpose(2, 3), 3, safe)
-            live = rows >= 0
-            page = torch.where(live[..., None], page, -1)
-            first = torch.where(live, first, -1)
-            return page, first, counts, cnts
+        def kept_rows(cells):
+            p, s, r = cells[:, 0], cells[:, 1], cells[:, 3]
+            return index.triples[s, spans[p, s, 0] + r]
 
-        self._steps[key] = step
-        return step
+        return grouped_results(mask, first, cnt, groups, count_only,
+                               payload=kept_rows, seg_of_page=seg_of_page,
+                               segments=slots.shape[0])
 
     def execute_windowed(self, tp: TriplePattern,
                          omega: Optional[np.ndarray], max_mpr: int,
@@ -826,7 +792,9 @@ class ShardedSelector:
     streams -- so the accounting surface (and the budgets gated on it)
     is the JAX package's and is shared with the single-host kernel
     path. The card sees fewer launches: one grouped bind-join launch
-    per chunk of a request's pages (``grouped_chunks`` counts them).
+    per chunk of a request's pages (``grouped_chunks`` counts them),
+    and one fused launch per chunk of an order group's rounds
+    (``fused_chunks``), against one LaunchRecord per round.
 
     Omega-restricted pruning (docs/pruning.md): every request is
     launched from a host-side :class:`WindowPlan` -- the POS/OSP
@@ -853,6 +821,10 @@ class ShardedSelector:
         # window pages (``MAX_CHUNK_ROWS``), against one LaunchRecord
         # per page in ``launches``.
         self.grouped_chunks = 0
+        # Fused bind-join launches made: one per chunk of an order
+        # group's (round, segment) pages, against one LaunchRecord per
+        # round in ``launches``.
+        self.fused_chunks = 0
         # Placement surfaces (docs/federation.md, "Placement"): the
         # bounded heat log the re-partitioner consumes, and per-shard
         # attribution counters -- launches a shard had work in, candidate
@@ -1211,10 +1183,12 @@ class ShardedSelector:
         page skipping, and the small-work fast path behave exactly as
         unfused), then the launch-worthy segments are grouped BY INDEX
         ORDER -- only same-order segments can share a window slice pass
-        -- and each order group runs ``lowerable_windowed_fused``: per
-        round, one launch streams one window of every active segment.
-        Segments with fewer planned pages go inactive (page index -1)
-        in later rounds. ``fusion_legality`` refusals and singleton
+        -- and each order group runs in rounds: round r streams one
+        window page of every segment that still has one (segments with
+        fewer planned pages drop out of later rounds), one LaunchRecord
+        per round, while the card sees the rounds' pages in chunks, one
+        fused launch per chunk (:meth:`FederatedStore.fused_step`).
+        ``fusion_legality`` refusals and singleton
         order groups fall back to per-segment ``_launch_plan`` on the
         already-computed plans.
         """
@@ -1290,30 +1264,33 @@ class ShardedSelector:
                     finish_segment(self.fragments, seg, omegas_live,
                                    fresh, results[si], live)
                 continue
-            self._launch_fused_order(items, segments, results,
-                                     s_pad, g_pad, mp)
+            self._launch_fused_order(items, segments, results, g_pad, mp)
         return results
 
-    def _launch_fused_order(self, items, segments, results,
-                            s_pad: int, g_pad: int, mp: int) -> None:
-        """Run one order group's fused windowed rounds + epilogue."""
+    def _launch_fused_order(self, items, segments, results, g_pad: int,
+                            mp: int) -> None:
+        """Run one order group's fused windowed rounds + epilogue.
+
+        Round r streams page ``pages[r]`` of every segment that still has
+        one. The host accounting is the reference's, one LaunchRecord per
+        round; the device sees the rounds' pages in round order, in
+        chunks of ``MAX_CHUNK_ROWS`` (pages x shards x window), one fused
+        launch, compaction and copy per chunk.
+        """
         window = self.window
         wp = _pow2(window)
         s = len(items)
         order = items[0][4].order
-        idx = self.fed.indexes[order]
-        pats_all = np.full((s_pad, g_pad, mp, 3), -1, dtype=np.int32)
-        valid_all = np.zeros((s_pad, g_pad, mp), dtype=np.int32)
-        base_vecs = np.zeros((s_pad, 8), dtype=np.int32)
-        lo = np.zeros((s_pad,), dtype=np.int64)
-        hi = np.full((s_pad,), -1, dtype=np.int64)  # empty range for pads
-        for wi, (si, pats_live, _om, _live, plan) in enumerate(items):
-            p_grid, v_grid, bv = marshal_pattern_grid(
-                segments[si].tp, pats_live, g_pad, mp)
-            pats_all[wi], valid_all[wi], base_vecs[wi] = p_grid, v_grid, bv
-            lo[wi], hi[wi] = plan.lo_key, plan.hi_key
-        fn = self.fed.lowerable_windowed_fused(window, s_pad, g_pad)
-        rounds = max(len(w[4].pages) for w in items)
+        index = self.fed.indexes[order]
+        shards = self.fed.shards
+        dev = self.fed.device
+        grids = [marshal_pattern_grid(segments[si].tp, pats_live, g_pad, mp)
+                 for si, pats_live, _om, _live, _plan in items]
+        slots, live = kops.pack_slots(
+            np.concatenate([pg for pg, _v, _b in grids]),
+            np.concatenate([v for _p, v, _b in grids]), mp)
+        slots_d = _to(slots.reshape(s, g_pad, mp, 4), dev)
+        bvs_d = _to(np.stack([b for _p, _v, b in grids]), dev)
         for _si, _pl, _om, _live, plan in items:
             if self.heat is not None and plan.pages:
                 self.heat.record(plan.order, plan.lo_key, plan.hi_key,
@@ -1323,26 +1300,11 @@ class ShardedSelector:
             for page_idx in plan.pages:
                 self._charge_shard_page(plan, window, page_idx)
 
-        kept: Dict[Tuple[int, int], List[np.ndarray]] = {}
-        firsts: Dict[Tuple[int, int], List[np.ndarray]] = {}
-        cnt_total = np.zeros((s, g_pad), dtype=np.int64)
-        dev = self.fed.device
-        pats_dev = _to(pats_all, dev)
-        valid_dev = _to(valid_all, dev)
-        bvs_dev = _to(base_vecs, dev)
+        # the pages of every round, round-major: (segment, page index)
+        pages: List[Tuple[int, int]] = []
+        rounds = max(len(w[4].pages) for w in items)
         for r in range(rounds):
-            pi = np.full((s_pad,), -1, dtype=np.int32)
-            for wi, item in enumerate(items):
-                pages = item[4].pages
-                if r < len(pages):
-                    pi[wi] = pages[r]
-            active = [wi for wi in range(s) if pi[wi] >= 0]
-            page, first, counts, cnts = fn(
-                idx.triples, idx.valid, idx.keys, pats_dev, valid_dev,
-                bvs_dev, lo, hi, pi)
-            meta = torch.stack((counts.to(torch.int64), cnts)).cpu().numpy()
-            counts = meta[0]
-            cnt_total += meta[1].sum(axis=0)[:s]
+            active = [wi for wi in range(s) if r < len(items[wi][4].pages)]
             self.launches.append(LaunchRecord(
                 cand_streamed=len(active) * wp,
                 pat_slots=g_pad * mp,
@@ -1350,36 +1312,57 @@ class ShardedSelector:
                 pruned=any(items[wi][4].pruned for wi in active),
                 cand_full=len(active) * wp,
                 segments=len(active)))
-            gathered = [wi for wi in active
-                        if not segments[items[wi][0]].count_only]
-            n = int(counts[:, gathered].max(initial=0)) if gathered else 0
-            if n == 0:
-                continue   # cnt-only segments or nothing kept: no gather
-            page = page[..., :n, :].cpu().numpy()
-            first = first[..., :n].cpu().numpy()
-            for wi in gathered:
-                for sh in range(page.shape[0]):
-                    for gi in range(len(items[wi][3])):
-                        k = int(counts[sh, wi, gi])
-                        if k:
-                            kept.setdefault((wi, gi), []).append(
-                                page[sh, wi, gi, :k])
-                            firsts.setdefault((wi, gi), []).append(
-                                first[sh, wi, gi, :k])
+            pages += [(wi, items[wi][4].pages[r]) for wi in active]
 
-        for wi, (si, pats_live, omegas_live, live, _plan) in \
+        # each segment's bound-prefix range, searched once for all shards
+        # on the device (the host keys only chose the pages)
+        keys = torch.tensor([[w[4].lo_key, w[4].hi_key] for w in items],
+                            dtype=torch.int64, device=dev)
+        start = torch.searchsorted(index.keys, keys[None, :, 0].expand(
+            shards, s).contiguous(), side="left").T         # (Sseg, S)
+        end = torch.searchsorted(index.keys, keys[None, :, 1].expand(
+            shards, s).contiguous(), side="right").T
+        counting = [segments[w[0]].count_only for w in items]
+        cnt_total = np.zeros((s, g_pad), dtype=np.int64)
+        kept: List[List[List[np.ndarray]]] = [[[] for _ in range(g_pad)]
+                                              for _ in range(s)]
+        firsts: List[List[List[np.ndarray]]] = [[[] for _ in range(g_pad)]
+                                                for _ in range(s)]
+        per_chunk = max(1, MAX_CHUNK_ROWS // (shards * window))
+        for c0 in range(0, len(pages), per_chunk):
+            chunk = np.asarray(pages[c0:c0 + per_chunk], dtype=np.int64)
+            only_counts = [counting[wi] for wi in chunk[:, 0]]
+            seg_d = _to(chunk[:, 0], dev)
+            lo = start[seg_d] + _to(chunk[:, 1], dev)[:, None] * window
+            hi = torch.minimum(lo + window, end[seg_d])
+            gathered = None
+            if any(only_counts) and not all(only_counts):
+                gathered = _to(np.logical_not(only_counts), dev,
+                               torch.uint8)
+            self.fused_chunks += 1
+            cnts, per_seg = self.fed.fused_step(
+                index, slots_d, bvs_d, live, g_pad, window,
+                torch.stack([lo, hi], dim=-1), seg_d.to(torch.int32),
+                gathered=gathered, count_only=all(only_counts))
+            cnt_total += cnts
+            for wi, per_group in enumerate(per_seg):
+                for gi, (rows_g, first_g) in enumerate(per_group):
+                    if rows_g.shape[0]:
+                        kept[wi][gi].append(rows_g)
+                        firsts[wi][gi].append(first_g)
+
+        for wi, (si, pats_live, omegas_live, live_g, _plan) in \
                 enumerate(items):
             seg = segments[si]
             fresh: List[Tuple[np.ndarray, int]] = []
-            for gi in range(len(live)):
+            for gi in range(len(live_g)):
                 cnt = int(cnt_total[wi, gi])
-                rows = kept.get((wi, gi))
-                if seg.count_only or not rows:
+                if seg.count_only or not kept[wi][gi]:
                     fresh.append((_EMPTY, cnt))
                     continue
-                full = np.concatenate(rows, axis=0)
-                first_g = np.concatenate(firsts[(wi, gi)], axis=0)
+                full = np.concatenate(kept[wi][gi], axis=0)
+                first_g = np.concatenate(firsts[wi][gi], axis=0)
                 fresh.append((stream_order(full, first_g,
                                            pats_live[gi]), cnt))
             finish_segment(self.fragments, seg, omegas_live, fresh,
-                           results[si], live)
+                           results[si], live_g)

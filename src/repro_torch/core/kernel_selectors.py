@@ -75,8 +75,10 @@ MAX_FUSED_SEGMENTS = 16      # segments sharing one launch
 MAX_FUSED_SLOTS = 32768      # flat pattern slot table (S * G * Mp)
 MAX_FUSED_STREAM = 131072    # concatenated candidate rows
 
-# Tile size for fused launches: each segment's candidate block is
-# tile-aligned independently, so the finer tile bounds alignment waste.
+# Tile size of the JAX package's fused launches: each segment's candidate
+# block is tile-aligned independently. The port's kernel reads each
+# segment's rows unaligned; the tile stays the geometry of the fusion
+# ceilings and of the fused LaunchRecord's cand_streamed.
 FUSED_BT = 256
 assert FUSED_BT == kops.DEFAULT_FUSED_BT
 
@@ -149,93 +151,61 @@ def fusion_legality(segments: Sequence[FusedSegment], *,
     return None
 
 
-def _kept_mask(keep, base_mask, row_valid):
-    return keep & base_mask[:, None] & row_valid[:, None]     # (Tp, G)
-
-
 def grouped_results(mask, first, cnt, groups: int, count_only: bool,
-                    payload=None) -> Tuple[np.ndarray, List[Tuple]]:
-    """Host side of one windowed grouped launch: one compaction and one
-    device-to-host copy of everything the host needs.
+                    payload=None, seg_of_page=None, segments: int = 1
+                    ) -> Tuple[np.ndarray, List[List[Tuple]]]:
+    """Host side of one windowed grouped or fused launch: one compaction
+    and one device-to-host copy of everything the host needs.
 
     ``mask`` uint8 ``[P, S, G, W]``, ``first`` int32 and ``cnt`` int64
-    ``[P, S, G]`` as ``kops.bindjoin_grouped_cuda`` returns them.
-    Returns the Definition-2 ``cnt`` of the first ``groups`` groups
-    summed over pages and shards and, unless ``count_only`` (no
-    compaction at all), per group a pair: the int32 ``[K_g, C]`` columns
+    ``[P, S, G]`` as ``kops.bindjoin_grouped_cuda`` (or, with
+    ``seg_of_page``, the fused kernel's int32 ``[P]`` page segments on the
+    device, ``kops.bindjoin_fused_cuda``) returns them. Returns the
+    Definition-2 ``cnt`` of the first ``groups`` groups of each of the
+    ``segments`` segments, int64 ``[segments, groups]``, summed over
+    their pages and shards and, unless ``count_only`` (no compaction at
+    all), per segment and group a pair: the int32 ``[K, C]`` columns
     ``payload`` computes on the device from the kept cells' ``(p, s, g,
     r)`` indices (int64 ``[K, 4]``), and the cells' first matching slots,
     each in page, shard, row order. The copy is int32: the int64 ``cnt``
-    travels as pairs of int32 words, and a cell's group and first
-    matching slot as one word, ``first * G + g``.
+    travels as pairs of int32 words, and a cell's segment, group and
+    first matching slot as one word, ``(first * segments + seg) * G +
+    g``.
     """
-    cnt = cnt[..., :groups].sum(dim=(0, 1))
+    cnt = cnt[..., :groups]
+    if seg_of_page is None:
+        cnt = cnt.sum(dim=(0, 1))[None]
+    else:
+        # a dead page keeps nothing: its cnt is 0 wherever it adds
+        cnt = torch.zeros((segments, groups), dtype=torch.int64,
+                          device=cnt.device).index_add_(
+            0, seg_of_page.clamp(min=0).long(), cnt.sum(dim=1))
     if count_only:
         return cnt.cpu().numpy(), []
     g_all = mask.shape[2]
     cells = torch.nonzero(mask)                      # (K, 4), row-major
-    key = first[tuple(cells.T)] * g_all + cells[:, 2]
+    key = first[tuple(cells.T)]
+    if seg_of_page is not None:
+        key = key * segments + seg_of_page[cells[:, 0]]
+    key = key * g_all + cells[:, 2]
     cols = torch.cat([payload(cells), key[:, None]], dim=1)
-    host = torch.cat([cnt.view(torch.int32),
+    host = torch.cat([cnt.reshape(-1).view(torch.int32),
                       cols.to(torch.int32).reshape(-1)]).cpu().numpy()
-    cols_h = host[2 * groups:].reshape(-1, cols.shape[1])
-    group, first_h = np.divmod(cols_h[:, -1], g_all)[::-1]
-    return host[:2 * groups].view(np.int64), [
-        (cols_h[group == gi, :-1], first_h[group == gi])
-        for gi in range(groups)]
-
-
-def _fused_base_mask(cand, seg_of_row, base_vecs):
-    """Per-row base-pattern mask for a fused stream.
-
-    ``base_vecs`` is int32 [S, 8] (one ``pattern_vec_from`` per segment);
-    each row applies its own segment's bound components and repeated-
-    variable equality flags -- the fused-stream generalization of the
-    grouped kernel's base-pattern prologue on the same-pattern path.
-    """
-    bv = base_vecs[seg_of_row.clamp(min=0).long()]           # (T, 8)
-    mask = torch.ones(cand.shape[0], dtype=torch.bool, device=cand.device)
-    for i in range(3):
-        mask &= (bv[:, i] < 0) | (cand[:, i] == bv[:, i])
-    mask &= (bv[:, 3] == 0) | (cand[:, 0] == cand[:, 1])
-    mask &= (bv[:, 4] == 0) | (cand[:, 0] == cand[:, 2])
-    mask &= (bv[:, 5] == 0) | (cand[:, 1] == cand[:, 2])
-    return mask & (seg_of_row >= 0)
-
-
-def _fused_epilogue(keep, idx_first, nmatch, base_mask, row_valid,
-                    seg_of_row, segments: int, capacity: int):
-    """Device epilogue over the fused kernel outputs.
-
-    Like ``_compact_epilogue`` but segment-aware: compacted row indices
-    stay ascending per output column, and because every segment owns a
-    disjoint ascending row extent of the stream, the per-(segment,
-    group) kept counts let the host split each column's index list into
-    per-segment runs without a second pass. The per-segment sums are
-    exact int64 ``index_add_`` over ``seg_of_row`` (the reference's
-    one-hot int32 matrix product has no integer CUDA matmul); dead rows
-    (segment -1) land in a spill row that is dropped.
-    """
-    mask = _kept_mask(keep, base_mask, row_valid)             # (Tp, G)
-    seg = torch.where(seg_of_row >= 0, seg_of_row,
-                      segments).long()                         # (Tp,)
-    g = mask.shape[1]
-    seg_counts = torch.zeros((segments + 1, g), dtype=torch.int64,
-                             device=mask.device)
-    seg_counts.index_add_(0, seg, mask.to(torch.int64))
-    seg_cnts = torch.zeros_like(seg_counts)
-    seg_cnts.index_add_(0, seg, torch.where(mask, nmatch, 0).to(torch.int64))
-    rows, _counts = kops.compact_mask(mask.T, capacity)       # (G, Tp)
-    firsts = torch.gather(idx_first.T, 1, rows.clamp(min=0).long())
-    return rows, seg_counts[:segments], seg_cnts[:segments], firsts
-
-
-def _rows_to_host(rows, firsts, counts: np.ndarray
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Copy only the kept prefix of every group's compacted indices
-    (``counts`` holds each group's kept-row count, on the host)."""
-    n = int(np.max(counts, initial=0))
-    return rows[:, :n].cpu().numpy(), firsts[:, :n].cpu().numpy()
+    n_cnt = 2 * segments * groups
+    cols_h = host[n_cnt:].reshape(-1, cols.shape[1])
+    rest, group = np.divmod(cols_h[:, -1], g_all)
+    first_h, seg = np.divmod(rest, segments)
+    # stable: each (segment, group) keeps the page, shard, row order
+    cell = seg * groups + group
+    order = np.argsort(cell, kind="stable")
+    bounds = np.searchsorted(cell[order], np.arange(segments * groups + 1))
+    cols_h, first_h = cols_h[order, :-1], first_h[order]
+    runs = [slice(bounds[c], bounds[c + 1])
+            for c in range(segments * groups)]
+    kept = [[(cols_h[run], first_h[run])
+             for run in runs[si * groups:(si + 1) * groups]]
+            for si in range(segments)]
+    return host[:n_cnt].view(np.int64).reshape(segments, groups), kept
 
 
 @dataclasses.dataclass
@@ -602,10 +572,12 @@ class KernelSelector:
 
         Each segment is exactly what ``select_same_pattern`` serves
         alone: one triple pattern plus its request groups. The fused
-        path concatenates every segment's (pruned) candidate block into
-        one tile-aligned stream, marshals rectangular per-segment slot
-        tables, and launches ``kops.bindjoin_fused`` once; the kernel
-        resolves each tile's segment from its program id. Residency
+        path lays every segment's (pruned) candidate block end to end,
+        marshals rectangular per-segment slot tables, and launches the
+        fused kernel (``kops.bindjoin_fused_cuda``) once, with one page
+        per segment over its own rows, matched against its own slot
+        table and base pattern. One compaction and one device-to-host
+        copy follow, split per (segment, group) on the host. Residency
         skips, Omega-restricted pruning, the small-work fast path, and
         the ``stream_order`` parity epilogue all behave exactly as on
         the unfused path, so fragments are byte-identical. When
@@ -671,9 +643,9 @@ class KernelSelector:
         if not work:
             return results
 
-        # Fused geometry: common padded (G, Mp) slot grid, power-of-two
-        # segment/tile counts, per-segment blocks
-        # tile-aligned so every bt-tile belongs to exactly one segment.
+        # Fused geometry, the JAX package's (legality and LaunchRecord):
+        # common padded (G, Mp) slot grid, power-of-two segment/tile
+        # counts, each segment's block aligned to bt-row tiles.
         bt = FUSED_BT
         s = len(work)
         s_pad = _pow2_at_least(s)
@@ -698,71 +670,61 @@ class KernelSelector:
                                      results[si], live)
             return results
 
-        tiles_pad = _pow2_at_least(total_tiles)
-        t_pad = tiles_pad * bt
-        cand = np.zeros((t_pad, 3), dtype=np.int32)
-        row_valid = np.zeros((t_pad,), dtype=bool)
-        seg_of_tile = np.full((tiles_pad,), -1, dtype=np.int32)
-        pats_all = np.full((s_pad, g_pad, m_max, 3), -1, dtype=np.int32)
-        valid_all = np.zeros((s_pad, g_pad, m_max), dtype=np.int32)
-        base_vecs = np.zeros((s_pad, 8), dtype=np.int32)
-        cursor = 0
-        for wi, (si, pats_live, _om, _live, block, t, _pr, _full) \
-                in enumerate(work):
-            cand[cursor:cursor + t] = block
-            row_valid[cursor:cursor + t] = True
-            seg_of_tile[cursor // bt:cursor // bt + tiles[wi]] = wi
-            p_grid, v_grid, bv = marshal_pattern_grid(
-                segments[si].tp, pats_live, g_pad, m_max)
-            pats_all[wi] = p_grid
-            valid_all[wi] = v_grid
-            base_vecs[wi] = bv
-            cursor += tiles[wi] * bt
-        cand_d = self._to_device(cand)
-        seg_of_tile_d = self._to_device(seg_of_tile)
-        keep, idx, nmatch = kops.bindjoin_fused(
-            cand_d, seg_of_tile_d, self._to_device(pats_all),
-            self._to_device(valid_all), bt=bt)
-        seg_of_row = seg_of_tile_d.repeat_interleave(bt)
-        base_mask = _fused_base_mask(cand_d, seg_of_row,
-                                     self._to_device(base_vecs))
-        rows, seg_counts, seg_cnts, firsts = _fused_epilogue(
-            keep, idx, nmatch, base_mask, self._to_device(row_valid),
-            seg_of_row, s_pad, capacity=t_pad)
+        # One fused launch: the segments' blocks laid end to end as a
+        # one-shard store, one page per segment spanning its own rows,
+        # each page against its segment's slot table and base vector.
+        cand = np.concatenate([w[4] for w in work]).astype(np.int32,
+                                                          copy=False)
+        ends = np.cumsum([w[5] for w in work])
+        spans = np.stack([ends - [w[5] for w in work], ends], axis=-1)
+        grids = [marshal_pattern_grid(segments[w[0]].tp, w[1], g_pad, m_max)
+                 for w in work]
+        slots, live = kops.pack_slots(
+            np.concatenate([pg for pg, _v, _b in grids]),
+            np.concatenate([v for _p, v, _b in grids]), mp)
+        seg_of_page = self._to_device(np.arange(s, dtype=np.int32))
+        spans_d = self._to_device(spans[:, None].astype(np.int64))
+        mask, first, cnt, _ = kops.bindjoin_fused_cuda(
+            self._to_device(np.ascontiguousarray(cand))[None], None,
+            self._to_device(slots.reshape(s, g_pad, mp, 4)),
+            self._to_device(np.stack([b for _p, _v, b in grids])),
+            spans=spans_d, seg_of_page=seg_of_page,
+            width=int(max(w[5] for w in work)), live=live)
 
         full_tiles = sum(-(-w[7] // bt) for w in work)
         self.launches.append(LaunchRecord(
-            cand_streamed=t_pad, pat_slots=g_pad * mp,
+            cand_streamed=_pow2_at_least(total_tiles) * bt,
+            pat_slots=g_pad * mp,
             groups=sum(len(w[3]) for w in work),
             pruned=any(w[6] for w in work),
             cand_full=_pow2_at_least(full_tiles) * bt,
             segments=s, cand_rows=sum(w[5] for w in work),
             full_rows=sum(w[7] for w in work)))
 
-        seg_counts = seg_counts.cpu().numpy()
-        seg_cnts = seg_cnts.cpu().numpy()
-        rows, firsts = _rows_to_host(rows, firsts, seg_counts.sum(axis=0))
-        # Column g's compacted indices ascend, and segments own disjoint
-        # ascending row extents: segment wi's run starts after every
-        # earlier segment's kept count in that column.
-        off = np.cumsum(seg_counts, axis=0) - seg_counts     # (S, G)
-        for wi, (si, pats_live, omegas_live, live, _b, _t, _pr, _full) \
+        gathered = [not segments[w[0]].count_only for w in work]
+        if any(gathered) and not all(gathered):
+            # count-only segments return only cnt: their pages keep no cell
+            mask *= self._to_device(np.array(gathered, np.uint8))[
+                :, None, None, None]
+        # the payload is a kept row's position in the concatenated blocks
+        cnts, kept = grouped_results(
+            mask, first, cnt, g_pad, not any(gathered),
+            payload=lambda c: c[:, 3:4] + spans_d[c[:, 0], 0, :1],
+            seg_of_page=seg_of_page, segments=s)
+        for wi, (si, pats_live, omegas_live, live_g, _b, _t, _pr, _full) \
                 in enumerate(work):
             seg = segments[si]
             fresh: List[Tuple[np.ndarray, int]] = []
-            for gi in range(len(live)):
-                cnt = int(seg_cnts[wi, gi])
-                n = int(seg_counts[wi, gi])
-                if seg.count_only or n == 0:
-                    fresh.append((_EMPTY, cnt))
+            for gi in range(len(live_g)):
+                cnt_g = int(cnts[wi, gi])
+                if seg.count_only or kept[wi][gi][1].shape[0] == 0:
+                    fresh.append((_EMPTY, cnt_g))
                     continue
-                run = slice(off[wi, gi], off[wi, gi] + n)
-                kept = cand[rows[gi, run]]         # tp-index order
-                first = firsts[gi, run]
-                fresh.append((stream_order(kept, first, pats_live[gi]),
-                              cnt))
+                pos, first_g = kept[wi][gi]
+                fresh.append((stream_order(cand[pos[:, 0]], first_g,
+                                           pats_live[gi]), cnt_g))
             self._finish_segment(seg, omegas_live, fresh, results[si],
-                                 live)
+                                 live_g)
         return results
 
     def _consult_segment(self, seg: FusedSegment,
@@ -858,6 +820,7 @@ class KernelSelector:
                          cand_rows=t, full_rows=full))
         cnts, kept = grouped_results(mask, first, cnt, g, count_only,
                                      payload=lambda c: c[:, 3:4])
+        cnts, kept = cnts[0], kept[0] if kept else None
         out: List[Tuple[np.ndarray, int]] = []
         for gi in range(g):
             if count_only or kept[gi][1].shape[0] == 0:

@@ -4,8 +4,8 @@ spot).
 The hand-written CUDA kernels are in ``csrc/bindjoin.cu``. They replace
 the TPU kernels ``repro/kernels/bindjoin.py:bindjoin_pallas``,
 ``:bindjoin_grouped_pallas`` and ``:bindjoin_fused_pallas``; the grouped
-kernel also takes over the ``tpf_match`` base mask of every grouped
-step.
+and fused kernels also take over the ``tpf_match`` base mask of every
+grouped or fused step.
 
 The grouped kernel serves a chunk of P window pages of S shards in one
 launch, reading the store's own ``[S, N, 3]`` rows: per (page, shard) an
@@ -17,13 +17,14 @@ and the Definition-2 ``cnt`` int64 ``[P, S, G]``. With a wildcard base
 vector, one page over ``[0, T)`` and ``dense=True`` (``first`` and
 ``nmatch`` for every row) it is the reference op's grouped bind-join.
 
-The fused kernel computes, for every candidate row and group g, ``keep``
-(the row matches a valid slot of its own segment's group g), ``idx``
-(the smallest matching slot, or Mp) and ``nmatch``, each int32
-``[T, G]``; the ungrouped kernel (the sharded backend's full-shard
-stream) computes ``keep`` and ``idx`` int32 ``[T]`` against one slot
-set, with ``idx`` = the padded M where no slot matches. Both keep one
-thread per row and stage slots through shared memory tile by tile.
+The fused kernel is the same kernel over pages of several segments (the
+requests of a heterogeneous batch, each with its own pattern): each page
+has a segment id (``seg_of_page``, -1 = dead) and is matched against
+that segment's slot table and base vector, with the same outputs. One
+256-row page per candidate tile and wildcard base vectors make it the
+reference op's fused bind-join. The ungrouped kernel (the sharded
+backend's full-shard stream) computes ``keep`` and ``idx`` int32 ``[T]``
+against one slot set, with ``idx`` = the padded M where no slot matches.
 
 Each ``*_cuda`` wrapper dispatches on the tensor's device: a CUDA tensor
 launches the kernel (counted in the wrapper's ``launches``, its geometry
@@ -41,10 +42,11 @@ from . import build, ref
 DEFAULT_BT = 1024
 DEFAULT_BM = 128
 
-# Fused launches tile the candidate stream finer than the same-pattern
-# grouped kernel: each segment's block is tile-aligned independently, so
-# a smaller tile bounds the per-segment alignment waste. The CUDA kernel
-# runs one 256-thread block per tile, so this is also its block size.
+# The JAX package's fused launches tile the candidate stream finer than
+# its same-pattern grouped kernel: each segment's block is tile-aligned
+# independently, so a smaller tile bounds the per-segment alignment
+# waste. The fused op keeps the tile as its contract (one segment id per
+# tile) and hands the kernel one page per tile.
 DEFAULT_FUSED_BT = 256
 
 # The plain versions build a [rows, G, Mp] compare grid; they walk the
@@ -57,10 +59,6 @@ def _row_chunks(t: int, cells_per_row: int):
     step = max(1, PLAIN_CHUNK_CELLS // max(cells_per_row, 1))
     for lo in range(0, max(t, 1), step):
         yield lo, min(lo + step, t)
-
-
-def _int32_outputs(keep, idx, nmatch):
-    return keep.to(torch.int32), idx, nmatch
 
 
 def bindjoin_plain(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o, pat_valid):
@@ -122,21 +120,36 @@ def bindjoin_grouped_plain(triples, valid, slots, base_vec, *, spans=None,
     return mask, cells(idx), cnt, cells(nmatch) if dense else None
 
 
-def bindjoin_fused_plain(seg_of_tile, cand_s, cand_p, cand_o, pat_s, pat_p,
-                         pat_o, pat_valid, *, segments: int, groups: int,
-                         bt: int = DEFAULT_FUSED_BT):
-    """Plain PyTorch version of the fused kernel, same flat inputs
-    (``pat_*`` int32 ``[S * G * Mp]``, ``seg_of_tile`` int32 ``[T / bt]``)
-    and int32 ``[T, G]`` outputs."""
-    mp = pat_s.shape[0] // (segments * groups)
-    pats = [x.reshape(segments, groups, mp)
-            for x in (pat_s, pat_p, pat_o, pat_valid)]
-    seg_of_row = seg_of_tile.repeat_interleave(bt)
-    parts = [_int32_outputs(*ref.bindjoin_fused_ref(
-        cand_s[lo:hi], cand_p[lo:hi], cand_o[lo:hi], seg_of_row[lo:hi],
-        *pats))
-        for lo, hi in _row_chunks(cand_s.shape[0], groups * mp)]
-    return tuple(torch.cat(xs) for xs in zip(*parts, strict=True))
+def bindjoin_fused_plain(triples, valid, slots, base_vecs, *, spans,
+                         seg_of_page, width: int, live=None,
+                         dense: bool = False):
+    """Plain PyTorch version of the fused kernel: the same inputs and
+    outputs. Each segment's pages go through the grouped kernel's plain
+    version with that segment's slot table and base vector; a page whose
+    id lies outside ``[0, Sseg)`` keeps nothing (``first`` Mp, ``nmatch``
+    0)."""
+    del live
+    s = triples.shape[0]
+    g, mp = slots.shape[1:3]
+    p = spans.shape[0]
+    dev = triples.device
+    mask = torch.zeros((p, s, g, width), dtype=torch.uint8, device=dev)
+    first = torch.full((p, s, g, width), mp, dtype=torch.int32, device=dev)
+    cnt = torch.zeros((p, s, g), dtype=torch.int64, device=dev)
+    nmatch = torch.zeros((p, s, g, width), dtype=torch.int32,
+                         device=dev) if dense else None
+    for sid in range(slots.shape[0]):
+        pages = torch.nonzero(seg_of_page == sid)[:, 0]
+        if pages.numel() == 0:
+            continue
+        out = bindjoin_grouped_plain(triples, valid, slots[sid],
+                                     base_vecs[sid], spans=spans[pages],
+                                     width=width, dense=dense)
+        for whole, part in zip((mask, first, cnt, nmatch), out,
+                               strict=True):
+            if whole is not None:
+                whole[pages] = part
+    return mask, first, cnt, nmatch
 
 
 def _check_inputs(cands, pats, n_pat: int) -> torch.device:
@@ -151,11 +164,6 @@ def _check_inputs(cands, pats, n_pat: int) -> torch.device:
             or any(x.shape[0] != n_pat for x in pats):
         raise ValueError("bind-join input lengths disagree")
     return device
-
-
-def _outputs(t: int, groups: int, device):
-    return tuple(torch.empty((t, groups), dtype=torch.int32, device=device)
-                 for _ in range(3))
 
 
 def bindjoin_cuda(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o, pat_valid):
@@ -230,6 +238,16 @@ def _check_grouped(triples, valid, slots, base_vec, spans, rows,
     return where.shape[0]
 
 
+def _window_outputs(p: int, s: int, g: int, width: int, device,
+                    dense: bool):
+    """The windowed kernels' outputs: mask, first, cnt (zeroed: the
+    kernels add into it) and, with ``dense``, nmatch."""
+    first = torch.empty((p, s, g, width), dtype=torch.int32, device=device)
+    return (torch.empty((p, s, g, width), dtype=torch.uint8, device=device),
+            first, torch.zeros((p, s, g), dtype=torch.int64, device=device),
+            torch.empty_like(first) if dense else None)
+
+
 def bindjoin_grouped_cuda(triples, valid, slots, base_vec, *, spans=None,
                           rows=None, width: int, live: int,
                           dense: bool = False):
@@ -263,10 +281,8 @@ def bindjoin_grouped_cuda(triples, valid, slots, base_vec, *, spans=None,
     s, n = triples.shape[:2]
     g, mp = slots.shape[:2]
     device = triples.device
-    mask = torch.empty((p, s, g, width), dtype=torch.uint8, device=device)
-    first = torch.empty((p, s, g, width), dtype=torch.int32, device=device)
-    cnt = torch.zeros((p, s, g), dtype=torch.int64, device=device)
-    nmatch = torch.empty_like(first) if dense else None
+    mask, first, cnt, nmatch = _window_outputs(p, s, g, width, device,
+                                               dense)
     if mask.numel() == 0:
         return mask, first, cnt, nmatch
     lib = build.library("bindjoin")
@@ -287,54 +303,67 @@ bindjoin_grouped_cuda.launches = 0
 bindjoin_grouped_cuda.shapes = Counter()
 
 
-def bindjoin_fused_cuda(seg_of_tile, cand_s, cand_p, cand_o, pat_s, pat_p,
-                        pat_o, pat_valid, *, segments: int, groups: int,
-                        bt: int = DEFAULT_FUSED_BT):
-    """Cross-pattern fused bind-join: S segments, one launch.
+def _check_fused(triples, valid, slots, base_vecs, spans, seg_of_page,
+                 width: int, live: int):
+    device = triples.device
+    if slots.dim() != 4 or tuple(base_vecs.shape) != (slots.shape[0], 8) \
+            or slots.shape[0] < 1:
+        raise ValueError("slots must be int32 [Sseg, G, Mp, 4] and "
+                         "base_vecs int32 [Sseg, 8]")
+    if not slots.is_contiguous() or not base_vecs.is_contiguous():
+        raise ValueError("slots and base_vecs must be contiguous")
+    p = _check_grouped(triples, valid, slots[0], base_vecs[0], spans, None,
+                       width, live)
+    if seg_of_page.dtype != torch.int32 or tuple(seg_of_page.shape) != (p,) \
+            or not seg_of_page.is_contiguous() \
+            or seg_of_page.device != device:
+        raise ValueError(f"seg_of_page must be a contiguous int32 [{p}] on "
+                         f"{device}")
+    return p
 
-    ``seg_of_tile`` is int32 ``[T / bt]`` (-1 = dead tile); pattern
-    inputs are flat int32 ``[S * G * Mp]`` slot tables; candidates int32
-    ``[T]`` with T a multiple of ``bt``. Returns (keep, idx, nmatch)
-    int32 ``[T, G]``: column g of a row is its result against its own
-    segment's group-g slots (``idx == Mp`` when none match).
+
+def bindjoin_fused_cuda(triples, valid, slots, base_vecs, *, spans,
+                        seg_of_page, width: int, live: int,
+                        dense: bool = False):
+    """Fused bind-join over a chunk of window pages of several segments:
+    one launch.
+
+    The grouped kernel's contract (``bindjoin_grouped_cuda``, spans
+    only), with one slot table and base vector per segment: ``slots``
+    int32 ``[Sseg, G, Mp, 4]``, ``base_vecs`` int32 ``[Sseg, 8]``, and
+    ``seg_of_page`` int32 ``[P]`` naming each page's segment (an id
+    outside ``[0, Sseg)``, such as -1, marks a dead page that keeps
+    nothing). ``live`` is at least one past every group's last valid
+    slot in every segment. Returns the grouped wrapper's four outputs.
     """
-    if cand_s.device.type == "cpu":
-        return bindjoin_fused_plain(seg_of_tile, cand_s, cand_p, cand_o,
-                                    pat_s, pat_p, pat_o, pat_valid,
-                                    segments=segments, groups=groups, bt=bt)
-    if cand_s.device.type != "cuda":
+    if triples.device.type == "cpu":
+        return bindjoin_fused_plain(triples, valid, slots, base_vecs,
+                                    spans=spans, seg_of_page=seg_of_page,
+                                    width=width, live=live, dense=dense)
+    if triples.device.type != "cuda":
         raise ValueError(f"bindjoin_fused: unsupported device "
-                         f"{cand_s.device}")
-    if bt != DEFAULT_FUSED_BT:
-        raise ValueError(f"the fused kernel's tile is {DEFAULT_FUSED_BT} "
-                         f"rows, not {bt}")
-    sgm = pat_s.shape[0]
-    if segments < 1 or groups < 1 or sgm % (segments * groups):
-        raise ValueError(f"slot table of {sgm} is not {segments} x "
-                         f"{groups} groups")
-    device = _check_inputs((cand_s, cand_p, cand_o),
-                           (pat_s, pat_p, pat_o, pat_valid), sgm)
-    t = cand_s.shape[0]
-    if t % bt or seg_of_tile.shape != (t // bt,) \
-            or seg_of_tile.dtype != torch.int32 \
-            or not seg_of_tile.is_contiguous() \
-            or seg_of_tile.device != device:
-        raise ValueError(f"fused stream of {t} rows needs a contiguous "
-                         f"int32 seg_of_tile of {t // bt} tiles on {device}")
-    keep, idx, nmatch = _outputs(t, groups, device)
+                         f"{triples.device}")
+    p = _check_fused(triples, valid, slots, base_vecs, spans, seg_of_page,
+                     width, live)
+    s, n = triples.shape[:2]
+    segs, g, mp = slots.shape[:3]
+    device = triples.device
+    mask, first, cnt, nmatch = _window_outputs(p, s, g, width, device,
+                                               dense)
+    if mask.numel() == 0:
+        return mask, first, cnt, nmatch
     lib = build.library("bindjoin")
     err = lib.brtpf_bindjoin_fused(
-        seg_of_tile.data_ptr(), cand_s.data_ptr(), cand_p.data_ptr(),
-        cand_o.data_ptr(), pat_s.data_ptr(), pat_p.data_ptr(),
-        pat_o.data_ptr(), pat_valid.data_ptr(), keep.data_ptr(),
-        idx.data_ptr(), nmatch.data_ptr(), t, groups,
-        sgm // (segments * groups),
+        triples.data_ptr(), None if valid is None else valid.data_ptr(),
+        spans.data_ptr(), seg_of_page.data_ptr(), slots.data_ptr(),
+        base_vecs.data_ptr(), mask.data_ptr(), first.data_ptr(),
+        cnt.data_ptr(), None if nmatch is None else nmatch.data_ptr(), n, p,
+        s, width, g, mp, segs, live,
         torch.cuda.current_stream(device).cuda_stream)
     build.check(err, "bindjoin_fused")
     bindjoin_fused_cuda.launches += 1
-    bindjoin_fused_cuda.shapes[
-        (t, segments, groups, sgm // (segments * groups))] += 1
-    return keep, idx, nmatch
+    bindjoin_fused_cuda.shapes[(p, s, width, g, mp, live, segs)] += 1
+    return mask, first, cnt, nmatch
 
 
 bindjoin_fused_cuda.launches = 0

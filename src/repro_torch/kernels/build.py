@@ -42,7 +42,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "bindjoin": {
         "brtpf_bindjoin": (_P,) * 9 + (_LL, _I, _P),
         "brtpf_bindjoin_grouped": (_P,) * 10 + (_LL,) + (_I,) * 6 + (_P,),
-        "brtpf_bindjoin_fused": (_P,) * 11 + (_LL, _I, _I, _P),
+        "brtpf_bindjoin_fused": (_P,) * 10 + (_LL,) + (_I,) * 7 + (_P,),
     },
 }
 

@@ -1,16 +1,16 @@
 """Padding and dispatch around the kernels (the port of
 ``repro/kernels/ops.py``).
 
-The ungrouped and fused ops pad exactly as the JAX package's ops do and
-hand structure-of-arrays inputs to their kernels. The grouped op and
+The ungrouped op pads exactly as the JAX package's op does and hands
+structure-of-arrays inputs to its kernel. The grouped and fused ops and
 ``tpf_match`` hand over the ``[T, 3]`` rows as they lie: their kernels
 mask their own edges, so no op pads candidates (the outputs for the
-caller's rows are the reference's). The selectors call the grouped
-kernel's windowed form (``bindjoin_grouped_cuda``) directly, with the
-host-side slot table of ``pack_slots``. Dispatch follows the tensor's
-device: a CUDA tensor gets the hand-written kernel, a CPU tensor its
-plain PyTorch version. ``compact_mask`` was plain ``jnp`` in the
-reference and stays plain torch here.
+caller's rows are the reference's). The selectors call the windowed
+kernels (``bindjoin_grouped_cuda``, ``bindjoin_fused_cuda``) directly,
+with the host-side slot tables of ``pack_slots``. Dispatch follows the
+tensor's device: a CUDA tensor gets the hand-written kernel, a CPU
+tensor its plain PyTorch version. ``compact_mask`` was plain ``jnp`` in
+the reference and stays plain torch here.
 """
 from __future__ import annotations
 
@@ -76,14 +76,6 @@ def padded_pattern_slots(m: int, bm: int = DEFAULT_BM) -> int:
     return max(m + (-m) % bm, bm)
 
 
-def _pad_slots(x: torch.Tensor, mp: int) -> torch.Tensor:
-    """[..., m] -> flat [prod(...) * mp], zero-filled slot padding."""
-    out = torch.zeros((*x.shape[:-1], mp), dtype=torch.int32,
-                      device=x.device)
-    out[..., :x.shape[-1]] = x
-    return out.reshape(-1)
-
-
 def pack_slots(patterns: np.ndarray, pat_valid: np.ndarray,
                mp: int) -> Tuple[np.ndarray, int]:
     """Host slot table of the grouped kernel: int32 ``[G, mp, 4]`` rows
@@ -134,6 +126,36 @@ def bindjoin_grouped(cand: torch.Tensor, patterns: torch.Tensor,
             nmatch[0, 0, :, :t].T)
 
 
+def fused_tile_pages(cand: torch.Tensor, seg_of_tile: torch.Tensor,
+                     patterns: torch.Tensor, pat_valid: torch.Tensor, *,
+                     bt: int = DEFAULT_FUSED_BT, bm: int = DEFAULT_BM):
+    """The fused kernel's inputs for the reference op's flat stream: a
+    one-shard store of the ``[T, 3]`` rows, one page per ``bt``-row tile
+    (span ``[bt * i, bt * i + bt)``, segment ``seg_of_tile[i]``), the
+    segments' slot tables from ``pack_slots`` and wildcard base vectors.
+    Returns the positional arguments and the keywords of
+    ``bindjoin_fused_cuda`` (dense outputs)."""
+    t = cand.shape[0]
+    s, g, m = patterns.shape[0], patterns.shape[1], patterns.shape[2]
+    if t % bt:
+        raise ValueError(f"fused stream of {t} rows is not whole "
+                         f"{bt}-row tiles")
+    mp = padded_pattern_slots(m, bm)
+    slots, live = pack_slots(
+        patterns.cpu().numpy().reshape(s * g, m, 3),
+        pat_valid.cpu().numpy().astype(np.int32).reshape(s * g, m), mp)
+    dev = cand.device
+    wild = np.tile(pattern_vec_from((-1, -1, -1)), (s, 1))
+    lo = torch.arange(0, t, bt, dtype=torch.int64, device=dev)
+    spans = torch.stack([lo, lo + bt], dim=-1)[:, None]
+    args = (cand.to(torch.int32).contiguous()[None], None,
+            torch.as_tensor(slots.reshape(s, g, mp, 4)).to(dev),
+            torch.as_tensor(wild).to(dev))
+    return args, dict(spans=spans,
+                      seg_of_page=seg_of_tile.to(torch.int32).contiguous(),
+                      width=bt, live=live, dense=True)
+
+
 def bindjoin_fused(cand: torch.Tensor, seg_of_tile: torch.Tensor,
                    patterns: torch.Tensor, pat_valid: torch.Tensor, *,
                    bt: int = DEFAULT_FUSED_BT, bm: int = DEFAULT_BM
@@ -153,20 +175,19 @@ def bindjoin_fused(cand: torch.Tensor, seg_of_tile: torch.Tensor,
       idx:    int32 [T, G] -- first matching within-group pattern index
         (= padded M if none).
       nmatch: int32 [T, G] -- matching-pattern count (cnt contribution).
+
+    The windowed fused kernel with its prologue off: one page per tile
+    (``fused_tile_pages``), dense outputs.
     """
-    t = cand.shape[0]
-    s, g, m = patterns.shape[0], patterns.shape[1], patterns.shape[2]
-    if t % bt:
-        raise ValueError(f"fused stream of {t} rows is not whole "
-                         f"{bt}-row tiles")
-    mp = padded_pattern_slots(m, bm)
-    ps, pp, po = (_pad_slots(patterns[..., i], mp) for i in range(3))
-    pv = _pad_slots(pat_valid.to(torch.int32), mp)
-    cs, cp, co = (cand[:, i].contiguous() for i in range(3))
-    keep, idx, nmatch = bindjoin_fused_cuda(
-        seg_of_tile.to(torch.int32).contiguous(), cs, cp, co, ps, pp, po,
-        pv, segments=s, groups=g, bt=bt)
-    return keep.bool(), idx, nmatch
+    t, g = cand.shape[0], patterns.shape[1]
+    args, kw = fused_tile_pages(cand, seg_of_tile, patterns, pat_valid,
+                                bt=bt, bm=bm)
+    mask, idx, _cnt, nmatch = bindjoin_fused_cuda(*args, **kw)
+
+    def rows(x):                             # (P, 1, G, bt) -> (T, G)
+        return x[:, 0].transpose(1, 2).reshape(t, g)
+
+    return rows(mask).bool(), rows(idx), rows(nmatch)
 
 
 def tpf_match(cand: torch.Tensor, pattern_vec: torch.Tensor) -> torch.Tensor:

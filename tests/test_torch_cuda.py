@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels.tpf_match import tpf_match_cuda, tpf_match_plain
 
 # the package re-exports the bindjoin op under the module's name
@@ -173,24 +174,117 @@ class TestKernelsOnCard:
         assert_windows_equal(got, want)
         assert not got[0][0, 1].any() and not got[0][1, 0].any()
 
-    def test_bindjoin_fused(self, cuda_device):
-        rng = np.random.default_rng(41)
-        s, g, mp, tiles = 4, 2, 384, 12
-        cand = [torch.as_tensor(c, device=cuda_device)
-                for c in rand_triples(rng, tiles * 256).T.copy()]
-        seg = rng.integers(-1, s, size=tiles).astype(np.int32)
-        flat = [torch.as_tensor(c, device=cuda_device)
-                for c in rand_patterns(rng, (s * g * mp,)).T.copy()]
-        pv = torch.as_tensor((rng.random(s * g * mp) < 0.7).astype(np.int32),
-                             device=cuda_device)
-        seg_d = torch.as_tensor(seg, device=cuda_device)
-        got = tbindjoin.bindjoin_fused_cuda(seg_d, *cand, *flat, pv,
-                                            segments=s, groups=g)
-        want = tbindjoin.bindjoin_fused_plain(seg_d, *cand, *flat, pv,
-                                              segments=s, groups=g)
+    # (pages, shards, width, segments, groups, Mp, live, dead pages,
+    # dense, seg_of_page layout)
+    FUSED_CASES = {
+        # dead pages among three segments, mask and first where kept
+        "dead": (6, 2, 1024, 3, 2, 128, 30, 2, False, "random"),
+        # the same, every output written for every row
+        "dead_dense": (6, 2, 1024, 3, 2, 128, 30, 2, True, "random"),
+        # 4096 one-tile pages of alternating segments: a block's run of
+        # items crosses segments and restages its table
+        "alternating": (4096, 1, 256, 2, 1, 128, 30, 0, False, "alternate"),
+        # a segment's table of 4 x 1024 live slots (64 KiB) is staged a
+        # group range at a time
+        "group_ranges": (5, 2, 512, 2, 4, 1024, 1024, 1, False, "random"),
+        # one group of 4096 live slots (64 KiB) is staged a slot range at
+        # a time
+        "slot_ranges": (5, 2, 512, 2, 1, 4096, 4096, 1, True, "random"),
+    }
+
+    @pytest.mark.parametrize("case", sorted(FUSED_CASES))
+    def test_bindjoin_fused(self, cuda_device, case):
+        """The fused kernel against its plain version: P pages of S
+        shards, each page against its own segment's slot table (a live
+        prefix with a hole, then padding) and base pattern (the first
+        segment a wildcard, the others a bound predicate and a repeated
+        variable)."""
+        p, s, w, segs, g, mp, live, dead, dense, layout = \
+            self.FUSED_CASES[case]
+        rng = np.random.default_rng(sum(map(ord, case)))
+        dev = cuda_device
+        n = 3000
+        triples = torch.as_tensor(
+            rand_triples(rng, s * n, terms=4).reshape(s, n, 3), device=dev)
+        valid = torch.as_tensor(rng.random((s, n)) < 0.9, device=dev)
+        slots = np.stack([live_prefix_slots(rng, g, mp, live)[0]
+                          for _ in range(segs)])
+        slots[:, :, live - 1, :3] = -1   # keeps every row that passes
+        base = np.tile(np.array([-1, 3, -1, 0, 1, 0, 0, 0], np.int32),
+                       (segs, 1))
+        base[0] = [-1, -1, -1, 0, 0, 0, 0, 0]
+        if layout == "alternate":
+            seg = np.arange(p) % segs
+        else:
+            seg = rng.integers(0, segs, size=p)
+        seg[rng.permutation(p)[:dead]] = -1
+        lo = rng.integers(0, n, size=(p, s))
+        hi = np.minimum(lo + w, rng.integers(lo, n + 1))
+        args = (triples, valid, torch.as_tensor(slots, device=dev),
+                torch.as_tensor(base, device=dev))
+        kw = dict(spans=torch.as_tensor(np.stack([lo, hi], -1),
+                                        device=dev),
+                  seg_of_page=torch.as_tensor(seg.astype(np.int32),
+                                              device=dev),
+                  width=w, live=live, dense=dense)
+        got = tbindjoin.bindjoin_fused_cuda(*args, **kw)
+        again = tbindjoin.bindjoin_fused_cuda(*args, **kw)
+        want = tbindjoin.bindjoin_fused_plain(*args, **kw)
         torch.cuda.synchronize()
-        for w, o in zip(want, got, strict=True):
-            assert torch.equal(w, o)
+        if dense:
+            for wt, o in zip(want, got, strict=True):
+                assert torch.equal(wt, o)
+        else:
+            assert_windows_equal(got, want)
+        assert torch.equal(again[2], got[2])
+        assert bool(got[0].any())
+        if dead:
+            assert not got[0][torch.as_tensor(seg < 0, device=dev)].any()
+
+    def test_bindjoin_fused_int64_positions(self, cuda_device):
+        """Spans past a shard's end and past 2^32 keep nothing, on the
+        card as on the plain version, on pages of two segments."""
+        rng = np.random.default_rng(6)
+        dev = cuda_device
+        triples = torch.as_tensor(rand_triples(rng, 2 * 512).reshape(
+            2, 512, 3), device=dev)
+        slots = np.stack([live_prefix_slots(rng, 2, 128, 4)[0]
+                          for _ in range(2)])
+        spans = torch.tensor([[[0, 512], [(1 << 32) + 3, (1 << 32) + 600]],
+                              [[(1 << 31) - 10, 1 << 33], [100, 400]],
+                              [[400, 1000], [0, 600]]],
+                             dtype=torch.int64, device=dev)
+        args = (triples, None, torch.as_tensor(slots, device=dev),
+                torch.tensor([[-1, -1, -1, 0, 0, 0, 0, 0]] * 2,
+                             dtype=torch.int32, device=dev))
+        kw = dict(spans=spans, width=600, live=4,
+                  seg_of_page=torch.tensor([1, 0, 1], dtype=torch.int32,
+                                           device=dev))
+        got = tbindjoin.bindjoin_fused_cuda(*args, **kw)
+        want = tbindjoin.bindjoin_fused_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert_windows_equal(got, want)
+        assert not got[0][0, 1].any() and not got[0][1, 0].any()
+
+    @pytest.mark.parametrize("tiles,segs,g,m,dead", [(12, 4, 2, 384, 3),
+                                                     (512, 16, 2, 1000, 40)])
+    def test_ops_bindjoin_fused(self, cuda_device, tiles, segs, g, m, dead):
+        """The reference op's contract (one page per 256-row tile,
+        wildcard base vectors, dense outputs) on the card against the
+        same op on the CPU, the plain version."""
+        rng = np.random.default_rng(tiles + m)
+        cand = rand_triples(rng, tiles * 256)
+        seg = rng.integers(0, segs, size=tiles).astype(np.int32)
+        seg[rng.permutation(tiles)[:dead]] = -1
+        pats = rand_patterns(rng, (segs, g, m))
+        valid = (rng.random((segs, g, m)) < 0.7).astype(np.int32)
+        inputs = [torch.as_tensor(x) for x in (cand, seg, pats, valid)]
+        got = tops.bindjoin_fused(*(x.to(cuda_device) for x in inputs))
+        want = tops.bindjoin_fused(*inputs)
+        torch.cuda.synchronize()
+        for wt, o in zip(want, got, strict=True):
+            assert torch.equal(wt, o.cpu())
+        assert bool(got[0].any())
 
     @pytest.mark.parametrize("t", [1, 1023, 4096, 1 << 20])
     @pytest.mark.parametrize("m", [128, 256])
@@ -362,3 +456,44 @@ def test_sharded_request_one_launch_per_chunk(cuda_device, monkeypatch):
         [x for x in got[1] if x["groups"] == 1],
         [x for x in got[1] if x["groups"] == 2]))
     assert pages > got[2] > 2
+
+
+@pytest.mark.cuda
+def test_sharded_fused_one_launch_per_chunk(cuda_device, monkeypatch):
+    """A heterogeneous batch of one index order over four shards: one
+    fused CUDA launch per chunk of its rounds' pages (the cap forced to
+    three pages), and fragments, cnt, LaunchRecords and per-shard
+    counters equal to the CPU run's."""
+    import dataclasses
+
+    from repro_torch.core import TriplePattern, encode_var
+    from repro_torch.core import federation
+    from repro_torch.core.kernel_selectors import FusedSegment
+
+    v = encode_var
+    rng = np.random.default_rng(10)
+    arr = np.unique(rng.integers(0, 15, size=(3000, 3)).astype(np.int32),
+                    axis=0)
+    om = rng.integers(0, 15, size=(5, 2)).astype(np.int32)
+    monkeypatch.setattr(federation, "MAX_CHUNK_ROWS", 3 * 4 * 16)
+
+    def run(device):
+        sel = federation.ShardedSelector(
+            federation.FederatedStore.build(arr, 4, device=device),
+            window=16)
+        rows = sel.select_fused([
+            FusedSegment(TriplePattern(v(0), 3, v(1)), [None, om]),
+            FusedSegment(TriplePattern(v(0), 5, v(1)), [om]),
+            FusedSegment(TriplePattern(v(0), 7, v(1)), [None],
+                         count_only=True)])
+        return ([(d.tobytes(), d.shape, c) for row in rows for d, c in row],
+                [dataclasses.asdict(r) for r in sel.launches],
+                sel.shard_balance(), sel.fused_chunks)
+
+    fused = tbindjoin.bindjoin_fused_cuda
+    before = fused.launches
+    got = run(cuda_device)
+    launched = fused.launches - before
+    assert got == run("cpu")
+    rounds = [r for r in got[1] if r["segments"] >= 2]
+    assert launched == got[3] and got[3] > 1 and len(rounds) > 1

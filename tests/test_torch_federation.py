@@ -17,8 +17,10 @@ per-shard counters and ``shard_balance``.
 * ``plan_windows`` over four shards against the reference's planner;
 * four shards end to end: the JAX package under four forced host
   devices, in one subprocess, against the port's four logical shards on
-  a manual placement with a replica range (the routed step) and on a
-  heat placement after ``repartition()``.
+  a manual placement with a replica range (the routed step), on a heat
+  placement after ``repartition()``, and on a heterogeneous batch
+  through the fused step (no placement), with the port's chunk cap
+  whole and forced small.
 """
 import asyncio
 import dataclasses
@@ -454,6 +456,31 @@ class TestChunkedPlans:
         # two pages (or rounds) per launch: chunks broke mid-plan
         assert 4 < tsel.grouped_chunks < pages
 
+    def test_fused_rounds_in_chunks(self):
+        """One order group's fused rounds split across chunks of two
+        (round, segment) pages: segments with unequal page counts, two
+        groups in one segment, a count-only segment."""
+        rng = np.random.default_rng(25)
+        arr = store_array(25, n=900)
+        om = [rand_omega(rng, 5) for _ in range(2)]
+
+        def run(pkg):
+            sel = selector(pkg, arr, window=16)
+            seg = pkg.ks.FusedSegment
+            res = sel.select_fused([
+                seg(pat(pkg.core, V(0), 3, V(1)), [None, om[0]]),
+                seg(pat(pkg.core, V(0), 5, V(1)), [om[1]]),
+                seg(pat(pkg.core, V(0), 7, V(1)), [None], count_only=True),
+                seg(pat(pkg.core, V(0), V(1), V(2)), [None])])
+            return sel, [[frag(r) for r in row] for row in res]
+
+        tsel = assert_same(run)
+        rounds = [r for r in tsel.launches if r.segments >= 2]
+        assert len(rounds) >= 3
+        # two pages per chunk: the rounds' pages took more chunks than
+        # there are rounds with two or more segments
+        assert tsel.fused_chunks > len(rounds)
+
     def test_count_only_takes_no_compaction(self, monkeypatch):
         """A count-only plan copies back its cnt and nothing else: no
         kept-cell compaction runs, on either backend."""
@@ -806,6 +833,35 @@ def run(core, FederatedStore, Placement, ReplicaRange, mesh_of, **cfg):
             int(sel.select_count(core.TriplePattern(V(0), 1, V(1)), None))]
         out[f"paged_{window}_launches"] = [asdict(r) for r in sel.launches]
         out[f"paged_{window}_shards"] = paged.metrics_snapshot()["shards"]
+
+    # a heterogeneous batch on the fused step (no placement): a POS order
+    # group of segments with unequal page counts (two whole predicates, a
+    # pruned segment of two groups, a count-only segment) and an SPO
+    # order group whose segments lie on different shards
+    for window in (4, 16):
+        fused = core.BrTPFServer(store, core.ServerConfig(
+            selector_backend="sharded", shard_window=window,
+            fuse_patterns=True, **cfg))
+        tp = core.TriplePattern
+        batch = [core.Request(tp(V(0), 2, V(1)), None, 0),
+                 core.Request(tp(V(0), 3, V(1)), None, 0),
+                 core.Request(tp(V(0), 1, V(1)),
+                              np.array([[-1, 10000], [-1, 10040]],
+                                       np.int32), 0),
+                 core.Request(tp(V(0), 1, V(1)),
+                              np.array([[-1, 10004]], np.int32), 0),
+                 core.Request(tp(V(0), 4, V(1)), None, 0, count_only=True),
+                 core.Request(tp(110, V(0), V(1)),
+                              np.array([[2, -1], [3, -1]], np.int32), 0),
+                 core.Request(tp(150, V(0), V(1)), None, 0)]
+        out[f"fused_{window}"] = [frag(f) for f in fused.handle_batch(batch)]
+        out[f"fused_{window}_launches"] = [
+            asdict(r) for r in fused._selector.launches]
+        out[f"fused_{window}_shards"] = fused.metrics_snapshot()["shards"]
+        out[f"fused_{window}_pages"] = fused.shard_launch_snapshot().tolist()
+        out[f"fused_{window}_counters"] = asdict(fused.counters)
+        out[f"fused_{window}_chunks"] = getattr(fused._selector,
+                                                "fused_chunks", None)
     return out
 '''
 
@@ -862,7 +918,10 @@ SCENARIO_KEYS = [
     "manual_pages", "heat_before", "heat_uniform", "heat_bounds",
     "heat_replicas", "heat_shard_n", "heat_after", "heat_shards",
     "heat_launches", "paged_4", "paged_4_launches", "paged_4_shards",
-    "paged_16", "paged_16_launches", "paged_16_shards"]
+    "paged_16", "paged_16_launches", "paged_16_shards",
+    "fused_4", "fused_4_launches", "fused_4_shards", "fused_4_pages",
+    "fused_4_counters", "fused_16", "fused_16_launches", "fused_16_shards",
+    "fused_16_pages", "fused_16_counters"]
 
 
 @pytest.mark.parametrize("key", SCENARIO_KEYS)
@@ -889,3 +948,20 @@ def test_four_shard_scenario_exercises_routing(four_shard_runs):
     # the replicated block is charged to both holders {0, 2}
     assert pages[0] > 0 and pages[2] > 0
     assert got["heat_shards"]["imbalance"] < got["heat_uniform"]["imbalance"]
+
+
+@pytest.mark.parametrize("window", [4, 16])
+def test_four_shard_fused_rounds_in_chunks(four_shard_runs, window):
+    """The fused batch ran fused rounds of several segments on the port:
+    one fused launch per chunk of an order group's rounds, fewer than the
+    rounds, and more chunks once the cap breaks the rounds apart."""
+    got, want, chunked = four_shard_runs
+    rounds = [r for r in got[f"fused_{window}_launches"]
+              if r["segments"] >= 2]
+    assert rounds and got[f"fused_{window}_counters"]["fused_launches"]
+    assert want[f"fused_{window}_chunks"] is None     # the JAX package
+    assert 2 <= got[f"fused_{window}_chunks"] < len(rounds)
+    assert chunked[f"fused_{window}_chunks"] > got[f"fused_{window}_chunks"]
+    # the count-only segment's cnt came back, and its page is empty
+    count_only = got[f"fused_{window}"][4]
+    assert count_only[2] > 0 and count_only[0] == []

@@ -363,6 +363,21 @@ class TestRefOracles:
         for w, o in zip(want, got, strict=True):
             same(w, o)
 
+    def test_bindjoin_fused_ref(self):
+        """The fused oracle, per row against its own segment's groups
+        (dead rows -1), equals the JAX package's."""
+        rng = np.random.default_rng(23)
+        cand = rand_triples(rng, 300)
+        seg_of_row = rng.integers(-1, 3, size=300).astype(np.int32)
+        pats = rand_patterns(rng, (3, 2, 20))
+        valid = (rng.random((3, 2, 20)) < 0.8).astype(np.int32)
+        args = ([cand[:, i] for i in range(3)] + [seg_of_row]
+                + [pats[..., i] for i in range(3)] + [valid])
+        want = jref.bindjoin_fused_ref(*(jnp.asarray(a) for a in args))
+        got = tref.bindjoin_fused_ref(*(tt(a) for a in args))
+        for w, o in zip(want, got, strict=True):
+            same(w, o)
+
     def test_compat_join_ref(self):
         rng = np.random.default_rng(22)
         mu = rng.integers(-1, 4, size=(60, 3)).astype(np.int32)
