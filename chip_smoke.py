@@ -41,15 +41,32 @@ printing its own lines:
    chunk of an order group's rounds, fewer than its fused rounds. The
    runs of phases 4 and 5 report wall ms per LaunchRecord, and both
    backends CUDA launches per LaunchRecord;
-6. path kernels: each kernel against its plain version again, at the
-   launch geometries each of phases 4 and 5 gave it most (the wrappers'
-   ``shapes`` tallies), with times and bounds beside that path's
-   launches, and the fused kernel at the largest chunk the sharded
-   async run launched.
+7. edge: the serving edge under the JAX package's chaos plan
+   (``benchmarks/chaos.py``) at phase 4's scale: a 4-replica
+   ``ReplicaRouter`` on the kernel backend behind the port's ASGI app,
+   seed 1608, 5% injected 503s on every replica, replica 1 stalled for
+   30 s after 2 requests; 16 async clients over the ASGI transport
+   through a ``ResilientTransport`` (retries, hedging, deadlines), the 8
+   queries run twice. Every query must complete with the numpy
+   backend's solutions, the success rate over client-visible requests
+   must be at least 0.999, and the grouped kernel must have launched.
+   The same plan with the bare transport and a 2 s client deadline
+   (the A/B arm) must fail at least one query;
+8. sim: the trace-replay simulator on the card: the kernel profile from
+   ``calibrate_kernels``, ``collect_traces`` of the 8 queries on the
+   kernel backend, and ``live_replay`` by 4 clients through a 2 ms
+   batching window, whose launch count must agree with the model's
+   within 10%;
+6. path kernels (run after 7 and 8): each kernel against its plain
+   version again, at the launch geometries each of phases 4, 5, 7 and 8
+   gave it most (the wrappers' ``shapes`` tallies), with times and
+   bounds beside that path's launches, and the fused kernel at the
+   largest chunk the sharded async run launched.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero before that line. Details go to ``chiprun_out/chip_smoke.json``.
+non-zero before that line. Details, phases 7 and 8's numbers among
+them, go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -96,6 +113,26 @@ ASYNC_CLIENTS = 4
 SHARDS = 4
 # execute_full's attached mappings: the interface's maxMpR.
 MAX_MPR = 30
+# Phase 7, the serving edge under the JAX package's chaos plan
+# (benchmarks/chaos.py): 4 kernel-backend replicas behind the ASGI app,
+# 16 clients, seed 1608 (arXiv:1608.08148), 5% injected 503s on every
+# replica, replica 1 stalled for 30 s after 2 requests.
+EDGE_REPLICAS = 4
+EDGE_CLIENTS = 16
+PLAN_SEED = 1608
+ERROR_RATE = 0.05
+STALLED_REPLICA = 1
+# The resilient clients' retry policy, and the bare A/B arm's deadline.
+RETRY = dict(max_attempts=10, base_backoff_s=2e-3, max_backoff_s=0.05,
+             deadline_ms=8000.0, attempt_timeout_ms=300.0, hedge=True)
+AB_DEADLINE_MS = 2000.0
+# The reference's chaos_c16:success_rate budget.
+MIN_SUCCESS_RATE = 0.999
+# Phase 8: live replay of the traces by 4 clients through a 2 ms window,
+# within the reference's 10% agreement bound (tests/test_batching.py).
+SIM_CLIENTS = 4
+SIM_WINDOW_S = 2e-3
+MAX_SIM_DISAGREEMENT = 0.10
 
 
 class SmokeFailure(RuntimeError):
@@ -785,13 +822,312 @@ def run_sharded(torch, core, data, queries, nres, counts, reset_counts):
     return details
 
 
+class OutcomeTransport:
+    """Counts and times request outcomes at one level of the stack:
+    above the resilience, the client-visible requests (the chaos run's
+    success rate and latency); below it, each attempt. ``calls`` keeps
+    every call's (start, end, exception name or None)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.max_mpr = inner.max_mpr
+        self.ok = 0
+        self.failed = 0
+        self.samples_s = []
+        self.calls = []
+
+    async def handle(self, req):
+        t0 = time.perf_counter()
+        try:
+            frag = await self.inner.handle(req)
+        except Exception as exc:
+            self.failed += 1
+            self.calls.append((t0, time.perf_counter(), type(exc).__name__))
+            raise
+        self.ok += 1
+        self.samples_s.append(time.perf_counter() - t0)
+        self.calls.append((t0, time.perf_counter(), None))
+        return frag
+
+    async def metrics(self):
+        return await self.inner.metrics()
+
+    async def aclose(self):
+        await self.inner.aclose()
+
+
+def chaos_arm(torch, core, data, queries, nres, resilient):
+    """One arm of the chaos run: a fresh 4-replica router under the plan,
+    the ASGI app in front of it, 16 async clients over the ASGI
+    transport (through a ResilientTransport, or bare with a client
+    deadline for the A/B arm), each query run twice, split as the
+    reference's split_workload splits it. Returns the outcome and the
+    router."""
+    from repro_torch.core import metrics, sim
+    from repro_torch.serving import faults, http, resilience, router
+    from repro_torch.serving import transport
+    plan = faults.FaultPlan(
+        seed=PLAN_SEED, default=faults.FaultSpec(error_rate=ERROR_RATE),
+        per_replica={STALLED_REPLICA: faults.FaultSpec(
+            error_rate=ERROR_RATE, stall_after=2, stall_s=30.0)})
+    rtr = router.ReplicaRouter(
+        data.store, core.ServerConfig(selector_backend="kernel",
+                                      fast_path_rows=0),
+        replicas=EDGE_REPLICAS, fault_plan=plan, failure_threshold=2,
+        reset_after_s=0.5)
+    attempts = OutcomeTransport(
+        transport.AsgiTransport(http.create_app(rtr)))
+    inner = (resilience.ResilientTransport(
+        attempts, resilience.RetryPolicy(**RETRY), seed=PLAN_SEED)
+        if resilient else attempts)
+    probe = OutcomeTransport(inner)
+    work = sim.split_workload(list(range(len(queries))) * 2, EDGE_CLIENTS)
+    outcome = {"failed_queries": 0, "mismatches": 0, "solved": 0}
+
+    async def one(client, idxs):
+        for i in idxs:
+            try:
+                res = await client.execute(queries[i][1])
+            except Exception:
+                outcome["failed_queries"] += 1
+                continue
+            outcome["solved"] += 1
+            want = nres[i]
+            if res.timed_out != want.timed_out or not (
+                    res.solutions.shape == want.solutions.shape
+                    and (res.solutions == want.solutions).all()):
+                outcome["mismatches"] += 1
+
+    async def drive():
+        clients = [core.AsyncBrTPFClient(
+            probe, request_budget=REQUEST_BUDGET,
+            deadline_ms=None if resilient else AB_DEADLINE_MS)
+            for _ in work]
+        try:
+            await asyncio.gather(*[one(c, w) for c, w in
+                                   zip(clients, work, strict=True)])
+            snap = await probe.metrics()
+        finally:
+            t0 = time.perf_counter()
+            await probe.aclose()
+            outcome["aclose_s"] = time.perf_counter() - t0
+        return snap
+
+    t0 = time.perf_counter()
+    snap = asyncio.run(drive())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = metrics.chaos_summary(
+        probe.ok, probe.failed, outcome["failed_queries"], probe.samples_s,
+        wall_s=wall, parity=float(outcome["mismatches"] == 0))
+    res = snap["resilience"]
+    records = sum(len(r.server._selector.launches) for r in rtr.replicas)
+    out.update(
+        wall_s=wall, queries=sum(len(w) for w in work),
+        solved_queries=outcome["solved"], mismatches=outcome["mismatches"],
+        aclose_s=outcome["aclose_s"], retries=res["retries"],
+        hedges=res["hedges"], hedge_wins=res["hedge_wins"],
+        shed=res["shed"], breaker_opens=res["breaker"]["opens"],
+        failovers=res["breaker"]["failovers"],
+        replica_failures=res["breaker"]["replica_failures"],
+        requests_per_replica=snap["router"]["requests_per_replica"],
+        faults=snap["faults"], launch_records=records,
+        ms_per_launch_record=1e3 * wall / max(records, 1),
+        hedging=hedge_diagnosis(attempts.calls, resilience))
+    return out
+
+
+def hedge_diagnosis(calls, resilience):
+    """Why the resilient arm hedged as often as it did. A
+    ResilientTransport hedges an attempt still open after the p95 of
+    the successful attempts that ended before it began (its last
+    LATENCY_WINDOW), once ``hedge_min_samples`` of them exist; an
+    attempt is cut at ``attempt_timeout_ms``. Replays that rule over
+    the attempts' own spans: for each attempt cut at the timeout, how
+    many successes it could see and the hedge delay then in force."""
+    policy = resilience.RetryPolicy(**RETRY)
+    window = resilience.ResilientTransport.LATENCY_WINDOW
+    start = min(t0 for t0, _, _ in calls)
+    oks = sorted((t1, t1 - t0) for t0, t1, err in calls if err is None)
+    cap_s = policy.attempt_timeout_ms / 1e3
+    cut, would_hedge = [], 0
+    for t0, t1, err in calls:
+        seen = [d for end, d in oks if end <= t0][-window:]
+        delay = None
+        if len(seen) >= policy.hedge_min_samples:
+            ordered = sorted(seen)
+            delay = ordered[min(len(ordered) - 1,
+                                int(0.95 * len(ordered)))]
+            would_hedge += t1 - t0 > delay
+        if err is not None and t1 - t0 >= 0.95 * cap_s:
+            cut.append(dict(start_s=t0 - start, successes_seen=len(seen),
+                            hedge_delay_ms=None if delay is None
+                            else 1e3 * delay, error=err))
+    reached = (oks[policy.hedge_min_samples - 1][0] - start
+               if len(oks) >= policy.hedge_min_samples else None)
+    return dict(attempts=len(calls), cut=cut, would_hedge=would_hedge,
+                min_samples=policy.hedge_min_samples,
+                min_samples_reached_s=reached)
+
+
+def run_edge(torch, core, data, queries, nres, counts, reset_counts):
+    """Phase 7: the serving edge under the chaos plan at the slice's
+    scale, then the bare A/B arm (not counted as the edge path)."""
+    reset_counts()
+    r = chaos_arm(torch, core, data, queries, nres, resilient=True)
+    r["launches"] = counts("edge")
+    log(f"edge: {EDGE_REPLICAS} kernel-backend replicas behind the ASGI "
+        f"app, {EDGE_CLIENTS} resilient clients, {r['queries']} queries "
+        f"({r['solved_queries']} completed, {r['failed_queries']} failed, "
+        f"{r['mismatches']} differ from the numpy oracle), "
+        f"{r['ok']} requests ok / {r['failed']} failed, success rate "
+        f"{r['success_rate']:.4f}, p50 {r['p50_latency_ms']:.1f} ms, p99 "
+        f"{r['p99_latency_ms']:.1f} ms, wall {r['wall_s']:.2f}s")
+    log(f"edge resilience: retries {r['retries']}, hedges {r['hedges']} "
+        f"({r['hedge_wins']} won), breaker opens {r['breaker_opens']}, "
+        f"failovers {r['failovers']}, replica failures "
+        f"{r['replica_failures']}, shed {r['shed']}; requests per replica "
+        f"{r['requests_per_replica']}; aclose {r['aclose_s']:.3f}s")
+    h = r["hedging"]
+    early = sum(c["hedge_delay_ms"] is None for c in h["cut"])
+    delays = [c["hedge_delay_ms"] for c in h["cut"]
+              if c["hedge_delay_ms"] is not None]
+    log(f"edge hedging: {h['attempts']} attempts, {len(h['cut'])} cut at "
+        f"the {RETRY['attempt_timeout_ms']:.0f} ms attempt timeout, at "
+        + ", ".join(f"{c['start_s']:.3f}s" for c in h["cut"])
+        + f" ({early} began before "
+        f"{h['min_samples']} successes had ended, which the "
+        "p95 hedge delay needs; the delay at the others "
+        + (f"{min(delays):.1f}-{max(delays):.1f} ms" if delays else "-")
+        + f"); {h['min_samples_reached_s']}s until that many ended; "
+        f"attempts the rule would hedge {h['would_hedge']}")
+    log(f"edge launches: {r['launches']}; {r['launch_records']} "
+        f"LaunchRecords, {r['ms_per_launch_record']:.3f} ms of wall time "
+        "per LaunchRecord")
+    if (r["failed_queries"] or r["mismatches"]
+            or r["success_rate"] < MIN_SUCCESS_RATE):
+        raise SmokeFailure(
+            f"edge: {r['failed_queries']} queries failed, "
+            f"{r['mismatches']} differ from the oracle, success rate "
+            f"{r['success_rate']:.4f} (needs >= {MIN_SUCCESS_RATE})")
+    ab = chaos_arm(torch, core, data, queries, nres, resilient=False)
+    log(f"edge A/B (bare transport, {AB_DEADLINE_MS:.0f} ms client "
+        f"deadline): {ab['failed_queries']} of {ab['queries']} queries "
+        f"failed, success rate {ab['success_rate']:.4f}, wall "
+        f"{ab['wall_s']:.2f}s, aclose {ab['aclose_s']:.3f}s")
+    if ab["failed_queries"] < 1 or ab["mismatches"]:
+        raise SmokeFailure(f"edge A/B: {ab['failed_queries']} queries "
+                           f"failed, {ab['mismatches']} differ (the plan "
+                           "must fail at least one query without "
+                           "resilience, and never change a result)")
+    return dict(resilient=r, ab=ab)
+
+
+def run_sim(torch, core, data, queries, counts, reset_counts):
+    """Phase 8: the simulator on the card. The kernel profile first (not
+    counted), then the counted path: trace collection on the kernel
+    backend and the live replay through the async front end."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from repro_torch.core import sim
+    t0 = time.perf_counter()
+    profile = sim.calibrate_kernels()
+    calibrate_s = time.perf_counter() - t0
+    log("sim kernel profile (calibrate_kernels): " + ", ".join(
+        f"{k} {v:.4e}" for k, v in profile.items())
+        + f" ({calibrate_s:.1f}s)")
+    cfg = core.ServerConfig(selector_backend="kernel", fast_path_rows=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+        traces = sim.collect_traces(core.BrTPFServer(data.store, cfg),
+                                    queries, "brtpf",
+                                    request_budget=REQUEST_BUDGET)
+        torch.cuda.synchronize()
+    joins = [ns for name, ns in device_events(torch, prof)
+             if "bindjoin" in name]
+    kernel_device_s = sum(joins) / 1e9
+    model, model_requests = model_kernel_s(sim, traces,
+                                           sim.SimParams(**profile))
+    # A query cut by the request budget leaves a trace of its first
+    # REQUEST_BUDGET requests, which the model would skip whole (it
+    # replays a trace only if the query completed) while the live front
+    # end serves every request of it: both replay the same recorded
+    # requests once each trace counts as complete.
+    truncated = sum(not t.completed for t in traces)
+    traces = [dataclasses.replace(t, completed=True) for t in traces]
+    params = sim.calibrate(core.BrTPFServer(data.store, cfg), queries)
+    params = dataclasses.replace(params, **profile)
+    lv = sim.live_replay(sim.split_workload(traces, SIM_CLIENTS),
+                         core.BrTPFServer(data.store, cfg), params,
+                         batch_window_s=SIM_WINDOW_S)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = counts("sim")
+    out = dict(profile=profile, calibrate_s=calibrate_s, seconds=secs,
+               launches=launched, within=lv.within, truncated=truncated,
+               live=dataclasses.asdict(lv),
+               params=dataclasses.asdict(params),
+               collect_launches=len(joins),
+               kernel_device_s=kernel_device_s, model_kernel_s=model)
+    log(f"sim kernel time of trace collection: the model charges "
+        f"{1e3 * sum(model.values()):.3f} ms ("
+        + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in model.items())
+        + f") for {model_requests} kernel-path requests; "
+        f"the card ran the bind-join kernels for "
+        f"{1e3 * kernel_device_s:.3f} ms in {len(joins)} launches "
+        "(torch.profiler)")
+    log(f"sim: {len(traces)} traces ({truncated} cut at {REQUEST_BUDGET} "
+        f"requests), live replay by {SIM_CLIENTS} clients "
+        f"through a {SIM_WINDOW_S * 1e3:.0f} ms window: launches simulated "
+        f"{lv.simulated_launches} / observed {lv.observed_launches} "
+        f"(|rel err| {lv.within:.3f}), skipped {lv.simulated_skipped} / "
+        f"{lv.observed_skipped}, cand_streamed {lv.simulated_cand} / "
+        f"{lv.observed_cand}, cand_rows {lv.simulated_cand_rows} / "
+        f"{lv.observed_cand_rows}, fused {lv.simulated_fused} / "
+        f"{lv.observed_fused}, shed {lv.observed_shed}; {secs:.1f}s; "
+        f"launches {launched}")
+    if lv.within > MAX_SIM_DISAGREEMENT or lv.observed_shed:
+        raise SmokeFailure(f"sim: live launches {lv.observed_launches} vs "
+                           f"simulated {lv.simulated_launches} "
+                           f"(|rel err| {lv.within:.3f} > "
+                           f"{MAX_SIM_DISAGREEMENT}) or shed "
+                           f"{lv.observed_shed}")
+    return out
+
+
+def model_kernel_s(sim, traces, params):
+    """What sim.simulate charges for the traces' kernel-path requests
+    served one at a time (a launch overhead per ``launches`` entry, the
+    streamed rows, and a cell per streamed row and padded pattern
+    slot), and how many such requests there are."""
+    out, requests = dict(overhead=0.0, stream=0.0, cells=0.0), 0
+    for ev in (e for t in traces for e in t.events):
+        if isinstance(ev, sim.HttpRecord) and ev.cand > 0:
+            n = max(ev.launches, 1)
+            out["overhead"] += n * params.kernel_launch_overhead_s
+            out["stream"] += ev.cand * params.kernel_stream_s
+            out["cells"] += ev.cand * ev.pats * params.kernel_cell_s / n
+            requests += 1
+    return out, requests
+
+
+def device_events(torch, prof):
+    """(short name, ns) of each device event of a torch.profiler run.
+    The raw trace events are read directly: building the profiler's
+    event tree for the sharded run's million events would take
+    minutes."""
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            name = ev.name().replace("(anonymous namespace)::", "")
+            yield re.split(r"[(<]", name)[0].strip()[-48:], ev.duration_ns()
+
+
 def profile_sync(torch, core, store, cfg, queries):
     """Device busy share of the sequential client's run: the summed
     span of every device event (kernels, copies, fills) recorded by
     ``torch.profiler`` (device activity only) over the host wall time,
-    plus the top device events by total time. The raw trace events are
-    read directly: building the profiler's event tree for the sharded
-    run's million events would take minutes."""
+    plus the top device events by total time."""
     from torch.profiler import ProfilerActivity, profile
     server = core.BrTPFServer(store, cfg)
     torch.cuda.synchronize()
@@ -803,17 +1139,12 @@ def profile_sync(torch, core, store, cfg, queries):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == torch.autograd.DeviceType.CUDA:
-            name = ev.name().replace("(anonymous namespace)::", "")
-            name = re.split(r"[(<]", name)[0].strip()[-48:]
-            by_name[name] = (by_name.get(name, 0.0)
-                             + ev.duration_ns() / 1e3)
-    busy = sum(by_name.values()) / 1e6
+    for name, ns in device_events(torch, prof):
+        by_name[name] = by_name.get(name, 0.0) + ns / 1e6
+    busy = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
-                requests=server.counters.num_requests,
-                top=[(name, us / 1e3) for name, us in top])
+                requests=server.counters.num_requests, top=top)
 
 
 # Which kernels each counted path must launch (the grouped paths run
@@ -822,6 +1153,8 @@ PATH_KERNELS = {
     "kernel backend": ("bindjoin_grouped", "bindjoin_fused"),
     "sharded backend": ("bindjoin_grouped", "bindjoin_fused"),
     "execute_full": ("tpf_match", "bindjoin"),
+    "edge": ("bindjoin_grouped",),
+    "sim": ("bindjoin_grouped",),
 }
 
 
@@ -898,15 +1231,23 @@ def main() -> int:
     sharded = run_sharded(torch, core, data, queries, nres, counts,
                           reset_counts)
     ends["sharded"] = time.perf_counter() - t_start
+    edge = run_edge(torch, core, data, queries, nres, counts, reset_counts)
+    ends["edge"] = time.perf_counter() - t_start
+    simulated = run_sim(torch, core, data, queries, counts, reset_counts)
+    ends["sim"] = time.perf_counter() - t_start
     details["phase_end_s"] = ends
     details["sharded"] = sharded
+    details["edge"] = edge
+    details["sim"] = simulated
     per_path = {
         "kernel backend": details["launches"],
         "sharded backend": {
             k: sum(sharded[run]["launches"][k]
                    for run in ("static", "async", "routed"))
             for k in wrappers},
-        "execute_full": sharded["execute_full_launches"]}
+        "execute_full": sharded["execute_full_launches"],
+        "edge": edge["resilient"]["launches"],
+        "sim": simulated["launches"]}
     for path, names in PATH_KERNELS.items():
         missing = [n for n in names if not per_path[path][n]]
         if missing:
@@ -918,7 +1259,8 @@ def main() -> int:
     records = {"kernel backend": details["launch_records"],
                "sharded backend": sum(sharded[run]["launch_records"]
                                       for run in ("static", "async",
-                                                  "routed"))}
+                                                  "routed")),
+               "edge": edge["resilient"]["launch_records"]}
     for path, n in records.items():
         log(f"{path}: CUDA launches per LaunchRecord "
             + ", ".join(f"{k} {per_path[path][k] / max(n, 1):.4f}"

@@ -7,8 +7,9 @@ TPF/brTPF server (``server``) with its kernel-backed selector
 (``kernel_selectors``), the two client algorithms (``client``), the
 async batching front end (``batching``), LRU cache simulation
 (``cache``), the unified page-granular fragment store under every cache
-layer (``fragments``), request accounting (``metrics``), and the sharded
-backend (``federation``, with workload-aware ``placement``).
+layer (``fragments``), request accounting (``metrics``), the brtpf/v1
+wire schema (``wire``), the trace-replay simulator (``sim``), and the
+sharded backend (``federation``, with workload-aware ``placement``).
 """
 from .batching import (AsyncBrTPFServer, BatchStats, DeadlineExceeded,
                        QueueSaturated, drive_streams, serve_concurrent)
@@ -18,7 +19,7 @@ from .client import (AsyncBrTPFClient, BrTPFClient, ExecutionResult,
                      TPFClient, plan_join_order)
 from .config import ServerConfig
 from .fragments import (ClientFragmentCache, FragmentStore, fragment_key)
-from .metrics import Counters, metrics_snapshot
+from .metrics import Counters, latency_summary, metrics_snapshot
 from .rdf import (TermDictionary, TriplePattern, UNBOUND, compatible,
                   decode_var, dedup_mappings, encode_var, is_var,
                   mapping_from_triple, merge, project_mappings)
@@ -29,6 +30,8 @@ from .server import (BrTPFServer, MaxMprExceeded, Request,
                      DEFAULT_MAX_MPR, DEFAULT_PAGE_SIZE)
 from .store import (CandidateRange, SpanGroup, SubRanges, TripleStore,
                     merge_spans, store_from_ntriples)
+from .wire import (WIRE_VERSION, WireError, fragment_from_wire,
+                   fragment_to_wire, request_from_wire, request_to_wire)
 
 # KernelSelector/LaunchRecord and FederatedStore/ShardedSelector are
 # imported from repro_torch.core.kernel_selectors and
@@ -42,7 +45,9 @@ __all__ = [
     "ExecutionResult",
     "Fragment", "FragmentStore", "LRUCache",
     "MaxMprExceeded", "Request", "TPFClient",
-    "fragment_key", "metrics_snapshot", "ServerConfig",
+    "fragment_key", "metrics_snapshot", "latency_summary", "ServerConfig",
+    "WIRE_VERSION", "WireError", "fragment_from_wire", "fragment_to_wire",
+    "request_from_wire", "request_to_wire",
     "drive_streams", "plan_join_order", "serve_concurrent",
     "TermDictionary", "TriplePattern", "TripleStore", "UNBOUND",
     "bgp_from_arrays", "brtpf_cardinality", "brtpf_select",

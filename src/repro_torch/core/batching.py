@@ -137,11 +137,38 @@ class AsyncBrTPFServer:
         self._flush_lock = asyncio.Lock()
         self._closed = False
 
+    @classmethod
+    def from_config(cls, store, config=None,
+                    batch_window_s: float = DEFAULT_BATCH_WINDOW_S,
+                    max_batch: int = DEFAULT_MAX_BATCH,
+                    cache=None, executor=None,
+                    queue_depth: Optional[int] = None
+                    ) -> "AsyncBrTPFServer":
+        """Build the wrapped origin server from a
+        :class:`~repro_torch.core.config.ServerConfig` -- the construction
+        path the ASGI app factory and the replica router share, so a
+        whole fleet is provably configured from one value object.
+        ``queue_depth`` defaults to the config's knob when not passed
+        explicitly."""
+        if queue_depth is None:
+            queue_depth = getattr(config, "queue_depth", None)
+        return cls(BrTPFServer(store, config, cache=cache),
+                   batch_window_s=batch_window_s, max_batch=max_batch,
+                   executor=executor, queue_depth=queue_depth)
+
     @property
     def max_mpr(self) -> int:
         """The wrapped server's maxMpR (the 414 bound a transport
         advertises)."""
         return self.server.max_mpr
+
+    def note_mappings(self, req: Request) -> None:
+        """Charge the request's attached solution mappings to the
+        server's ``mappings_sent``. Called by the WIRE boundary
+        (transport / ASGI app) -- in-process clients charge the counter
+        themselves, so the two paths never double-count."""
+        if req.omega is not None:
+            self.server.counters.mappings_sent += int(req.omega.shape[0])
 
     def metrics_snapshot(self) -> dict:
         """The canonical metrics envelope (metrics.py) with this front

@@ -105,3 +105,18 @@ class ServerConfig:
 
     def replace(self, **changes: Any) -> "ServerConfig":
         return dataclasses.replace(self, **changes)
+
+    def to_wire(self) -> dict:
+        """JSON-safe view. ``device`` is host-local, like the JAX
+        package's ``mesh``, and goes on the wire as ``None``: a remote
+        replica picks its own card. ``shards`` travels."""
+        return {f.name: None if f.name == "device" else getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    @classmethod
+    def from_wire(cls, obj: dict) -> "ServerConfig":
+        """Inverse of :meth:`to_wire`; unknown keys are dropped, so a
+        JAX package config body (``mesh``, ``shard_axis``) builds a port
+        config with the shared fields equal."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in obj.items() if k in fields})

@@ -16,14 +16,20 @@ counters plus the per-layer surface over the unified store -- the HTTP
 cache's section-7 hit rate, the selector-memo (data-layer) hit rate,
 the candidate-range memo hit rate and the skipped-launch count -- each
 layer accounted separately, so memo traffic can never masquerade as
-HTTP hits. ``BrTPFServer.metrics_snapshot()`` and the async front
-end's ``AsyncBrTPFServer.metrics_snapshot()`` emit THIS schema, the
-same one the JAX package serves at ``GET /metrics``.
+HTTP hits. ``BrTPFServer.metrics_snapshot()``, the async front end's
+``AsyncBrTPFServer.metrics_snapshot()``, the replica router's merged
+snapshot and the ASGI app's ``GET /metrics`` all emit THIS schema, the
+same one the JAX package emits.
+
+:func:`latency_summary` is the shared latency-quantile schema of the
+app's per-route section and of the chaos run's outcome
+(:func:`chaos_summary`): p50/p95/p99 latency in milliseconds plus
+``req_per_s``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 
 @dataclasses.dataclass
@@ -143,12 +149,67 @@ def metrics_snapshot(server, batch=None) -> dict:
             "mean_batch": batch.mean_batch,
             "shed": batch.shed,
         }
-        # the JAX package's "resilience" schema; a lone async front end
-        # sheds (docs/resilience.md), the other mechanisms live in the
-        # serving edge, which is not ported yet
-        out["resilience"] = {"retries": 0, "hedges": 0, "hedge_wins": 0,
-                             "shed": batch.shed, "deadline_exceeded": 0,
-                             "giveups": 0}
+        out["resilience"] = resilience_section(shed=batch.shed)
+    return out
+
+
+def resilience_section(retries: int = 0, hedges: int = 0,
+                       hedge_wins: int = 0, shed: int = 0,
+                       deadline_exceeded: int = 0, giveups: int = 0,
+                       breaker: Optional[dict] = None) -> dict:
+    """The ``"resilience"`` section of :func:`metrics_snapshot`
+    (docs/resilience.md) -- one schema for every surface that reports
+    fault-tolerance accounting:
+
+    * a lone async front end reports only ``shed`` (its deadline-aware
+      shedding is the one resilience mechanism that lives server-side);
+    * the replica router adds the summed replica ``shed`` plus its
+      ``breaker`` sub-section (state machine transitions/opens/failovers
+      per docs/resilience.md);
+    * a :class:`~repro_torch.serving.resilience.ResilientTransport`
+      overlays its client-side ``retries`` / ``hedges`` / ``hedge_wins``
+      / ``deadline_exceeded`` / ``giveups`` when asked for metrics, so
+      ``GET /metrics`` through a resilient client shows the whole
+      retry/hedge/shed story in one envelope.
+    """
+    out = {
+        "retries": int(retries),
+        "hedges": int(hedges),
+        "hedge_wins": int(hedge_wins),
+        "shed": int(shed),
+        "deadline_exceeded": int(deadline_exceeded),
+        "giveups": int(giveups),
+    }
+    if breaker is not None:
+        out["breaker"] = breaker
+    return out
+
+
+def chaos_summary(ok: int, failed: int, failed_queries: int,
+                  samples_s: Sequence[float],
+                  wall_s: Optional[float] = None,
+                  parity: float = 1.0) -> dict:
+    """Outcome schema of a chaos run (the JAX package's
+    ``benchmarks/chaos.py`` and ``chip_smoke.py``'s edge phase).
+
+    ``ok``/``failed`` count client-visible request outcomes AFTER the
+    resilience layer did its work (a request that succeeded on retry 3
+    is one ``ok``); ``failed_queries`` counts whole BGP executions
+    abandoned because one of their requests exhausted every attempt;
+    ``parity`` is 1.0 iff every query that completed under faults
+    produced byte-identical solutions to the fault-free oracle.
+    Latency quantiles ride along via :func:`latency_summary` so the same
+    run reports both availability and tail latency.
+    """
+    total = ok + failed
+    out = {
+        "ok": int(ok),
+        "failed": int(failed),
+        "failed_queries": int(failed_queries),
+        "success_rate": ok / total if total else 0.0,
+        "parity": float(parity),
+    }
+    out.update(latency_summary(samples_s, wall_s))
     return out
 
 
@@ -190,4 +251,35 @@ def rebalance_report(uniform: dict, heat: dict) -> dict:
         "imbalance_drop": drop,
         "shard_launches_uniform": uniform["launches"],
         "shard_launches_heat": heat["launches"],
+    }
+
+
+def latency_summary(samples_s: Sequence[float],
+                    wall_s: Optional[float] = None) -> dict:
+    """Latency-quantile schema: per-request latencies (seconds) ->
+    p50/p95/p99/mean milliseconds + closed-loop ``req_per_s``.
+
+    Quantiles use the nearest-rank method on the sorted samples -- no
+    numpy dependency, deterministic, and exact for the small sample
+    counts a smoke run produces.
+    """
+    n = len(samples_s)
+    if n == 0:
+        return {"requests": 0, "p50_latency_ms": 0.0,
+                "p95_latency_ms": 0.0, "p99_latency_ms": 0.0,
+                "mean_latency_ms": 0.0, "req_per_s": 0.0}
+    ordered = sorted(samples_s)
+
+    def rank_ms(q: float) -> float:
+        idx = min(n - 1, max(0, int(q * n + 0.5) - 1))
+        return ordered[idx] * 1e3
+
+    wall = wall_s if wall_s is not None else sum(ordered)
+    return {
+        "requests": n,
+        "p50_latency_ms": rank_ms(0.50),
+        "p95_latency_ms": rank_ms(0.95),
+        "p99_latency_ms": rank_ms(0.99),
+        "mean_latency_ms": sum(ordered) / n * 1e3,
+        "req_per_s": n / max(wall, 1e-9),
     }

@@ -34,8 +34,8 @@ The kernel and sharded backends share one selector interface
 ``LaunchRecord`` accounting surface, so batching, memoization, paging
 and the launch-budget gates are backend-agnostic.
 
-This is the port of ``repro.core.server``; the JAX package's wire
-schema is not ported yet.
+This is the port of ``repro.core.server``; ``Request`` speaks the same
+brtpf/v1 wire schema (``core/wire.py``).
 
 Every reuse layer -- the HTTP cache's pages, the selector memo and (via
 ``on_release``) the store's candidate-range memo -- lives in ONE
@@ -111,6 +111,20 @@ class Request:
     @property
     def is_brtpf(self) -> bool:
         return self.omega is not None and self.omega.shape[0] > 0
+
+    # -- wire schema (brtpf/v1; core/wire.py) -------------------------------
+
+    def to_wire(self) -> dict:
+        """brtpf/v1 request envelope (JSON-safe; omega as int lists)."""
+        from .wire import request_to_wire
+        return request_to_wire(self)
+
+    @staticmethod
+    def from_wire(obj: dict) -> "Request":
+        """Decode a brtpf/v1 request envelope (strict; raises
+        :class:`~repro_torch.core.wire.WireError` on malformed input)."""
+        from .wire import request_from_wire
+        return request_from_wire(obj)
 
 
 class MaxMprExceeded(ValueError):

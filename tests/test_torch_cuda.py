@@ -497,3 +497,46 @@ def test_sharded_fused_one_launch_per_chunk(cuda_device, monkeypatch):
     assert got == run("cpu")
     rounds = [r for r in got[1] if r["segments"] >= 2]
     assert launched == got[3] and got[3] > 1 and len(rounds) > 1
+
+
+@pytest.mark.cuda
+def test_edge_router_on_card_equals_numpy_app(cuda_device):
+    """The port's ASGI app over a 2-replica kernel-backend router on the
+    card (``device=None``) returns the fragment bodies of a numpy-backend
+    app, and the grouped kernel launched."""
+    from repro_torch.core import (Request, ServerConfig, TriplePattern,
+                                  TripleStore, encode_var)
+    from repro_torch.serving.http import TestClient, app_from_config
+
+    v = encode_var
+    rng = np.random.default_rng(31)
+    arr = np.unique(rng.integers(0, 18, size=(2000, 3)).astype(np.int32),
+                    axis=0)
+    reqs = []
+    for i in range(12):
+        s, p, o = (int(x) for x in arr[rng.integers(len(arr))])
+        tp = TriplePattern(*[(v(0), p, o), (s, p, v(0)), (v(0), p, v(1)),
+                             (v(0), v(1), o)][i % 4])
+        omega = None
+        if i % 3:
+            omega = rng.integers(0, 18, size=(int(rng.integers(1, 30)),
+                                              len(tp.variables()))) \
+                .astype(np.int32)
+        reqs.append(Request(pattern=tp, omega=omega, page=i % 2))
+
+    def bodies(cfg, replicas):
+        with TestClient(app_from_config(TripleStore(arr), cfg,
+                                        batch_window_s=1e-3,
+                                        replicas=replicas)) as tc:
+            out = [tc.post("/fragment", json_body=r.to_wire())
+                   for r in reqs]
+        assert all(r.status_code == 200 for r in out)
+        return [r.content for r in out]
+
+    grouped = tbindjoin.bindjoin_grouped_cuda
+    before = grouped.launches
+    got = bodies(ServerConfig(selector_backend="kernel", page_size=25,
+                              fast_path_rows=0), 2)
+    launched = grouped.launches - before
+    assert got == bodies(ServerConfig(page_size=25), 1)
+    assert launched > 0

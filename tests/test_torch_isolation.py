@@ -99,3 +99,21 @@ def test_entry_points_default_to_cuda():
     assert KernelSelector(store, device="cpu").device.type == "cpu"
     # the numpy oracle needs no device
     assert BrTPFServer(store, ServerConfig())._selector is None
+    # the serving edge builds its servers through the same path
+    from repro_torch.core import AsyncBrTPFServer
+    from repro_torch.serving.http import app_from_config
+    from repro_torch.serving.router import ReplicaRouter
+    kcfg = ServerConfig(selector_backend="kernel")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        app_from_config(store, kcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        app_from_config(store, kcfg, replicas=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AsyncBrTPFServer.from_config(store, kcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaRouter(store, kcfg, replicas=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaRouter(store, ServerConfig(selector_backend="sharded",
+                                          shards=2), replicas=2)
+    assert ReplicaRouter(store, kcfg.replace(device="cpu"), replicas=2) \
+        .replicas[1].server._selector.device.type == "cpu"
