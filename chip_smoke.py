@@ -61,7 +61,19 @@ printing its own lines:
    version again, at the launch geometries each of phases 4, 5, 7 and 8
    gave it most (the wrappers' ``shapes`` tallies), with times and
    bounds beside that path's launches, and the fused kernel at the
-   largest chunk the sharded async run launched.
+   largest chunk the sharded async run launched;
+9. lm: the LM serving path (plain torch ops, no hand-written kernel) at
+   full width in float32 with TF32 off: ``qwen2-1.5b`` (random
+   parameters from ``torch.Generator("cuda").manual_seed(0)``) through
+   (a) ``ServingEngine.generate`` at the reference CLI's defaults, (b)
+   a stepwise full forward over the growing sequences, (c) a 1 x 4096
+   prefill (the chunked-attention branch) and 8 decode steps against
+   the full forward, (d) the same parameters on the CPU; then
+   ``granite-moe-1b-a400m`` through (a) and (d) with each MoE dispatch.
+   Logits must agree within the stated tolerances and tokens wherever
+   the top-2 logit gap exceeds them. Prints parameters, peak memory,
+   prefill and decode tokens/s and decode ms per step beside the card's
+   name and power limit, and each one's bound.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -133,6 +145,22 @@ MIN_SUCCESS_RATE = 0.999
 SIM_CLIENTS = 4
 SIM_WINDOW_S = 2e-3
 MAX_SIM_DISAGREEMENT = 0.10
+# Phase 9: the LM serving path. (a) runs the reference CLI's defaults
+# (launch/serve.py: batch 4, prompts of 4-16 tokens from default_rng(0),
+# 24 new tokens, max_seq 64); (c) a prompt above ATTN_CHUNK_THRESHOLD and
+# a multiple of ATTN_CHUNK; (d) a prompt the CPU serves in seconds.
+LM_MODELS = (("qwen2-1.5b", ("einsum",)),
+             ("granite-moe-1b-a400m", ("einsum", "gather")))
+LM_BATCH, LM_PROMPT_LEN, LM_NEW_TOKENS, LM_MAX_SEQ = 4, 16, 24, 64
+LM_LONG_PROMPT, LM_LONG_DECODE = 4096, 8
+LM_CPU_PROMPT, LM_CPU_DECODE = 64, 4
+# float32 logits (std about 0.8 at random init) of two paths over the
+# same weights: largest absolute difference, and that over the largest
+# absolute logit (normwise relative).
+LM_ATOL = 1e-3
+LM_RTOL = 1e-4
+# float32 outside the tensor cores (TF32 off), NVIDIA data sheet.
+FP32_FLOPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -1147,6 +1175,289 @@ def profile_sync(torch, core, store, cfg, queries):
                 requests=server.counters.num_requests, top=top)
 
 
+def lm_padded(prompts):
+    """Prompts left-padded with 0 to a common length, as the engine
+    pads them."""
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    return toks
+
+
+def lm_path(torch, model, toks, feed, max_seq):
+    """The logits a greedy engine computes along ``feed``: prefill of
+    ``toks`` [B, P], then one decode step per token of ``feed`` [B, N].
+    Returns (logits [B, N + 1, V], prefill seconds, each decode step's
+    seconds), each time on the host clock up to a synchronise."""
+    dev = model.norm_f.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(torch.as_tensor(toks, device=dev),
+                                  max_seq=max_seq)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    out, steps = [logits[:, 0]], []
+    for j in range(feed.shape[1]):
+        tok = torch.as_tensor(feed[:, j:j + 1], device=dev)
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tok, toks.shape[1] + j)
+        sync()
+        steps.append(time.perf_counter() - t0)
+        out.append(logits[:, 0])
+    return torch.stack(out, dim=1), prefill_s, steps
+
+
+def lm_profile_decode(torch, model, toks, feed, max_seq):
+    """One decode step at the engine's batch, after a warm one, under
+    ``torch.profiler``: the device time of its kernels and copies, how
+    many there were, and the host ops that took the most CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = model.norm_f.device
+    _, cache = model.prefill(torch.as_tensor(toks, device=dev),
+                             max_seq=max_seq)
+    plen = toks.shape[1]
+    tok = [torch.as_tensor(feed[:, j:j + 1], device=dev) for j in (0, 1)]
+    model.decode_step(cache, tok[0], plen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode_step(cache, tok[1], plen + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = list(device_events(torch, prof))
+    by_name = Counter()
+    for name, ns in events:
+        by_name[name] += ns / 1e6
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_cpu_time_total)[:6]
+    return dict(
+        profiled_wall_s=wall, device_events=len(events),
+        device_s=sum(ns for _, ns in events) / 1e9,
+        top_device=by_name.most_common(4),
+        top_host=[(e.key, e.count, e.self_cpu_time_total / 1e3)
+                  for e in ops])
+
+
+def lm_logits_close(torch, label, got, want):
+    """Logits [B, N, V] of two paths: the largest absolute difference
+    within LM_ATOL, and that over the largest absolute logit within
+    LM_RTOL."""
+    want = want.to(got.device)
+    if not (bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(want).all())):
+        raise SmokeFailure(f"lm {label}: non-finite logits")
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    log(f"lm {label}: logits {tuple(got.shape)} max_abs_err {err:.3e} "
+        f"(atol {LM_ATOL:g}), max_rel_err {rel:.3e} (rtol {LM_RTOL:g})")
+    if err > LM_ATOL or rel > LM_RTOL:
+        raise SmokeFailure(f"lm {label}: logits disagree ({err}, {rel})")
+    return dict(max_abs_err=err, max_rel_err=rel)
+
+
+def lm_tokens_agree(torch, label, logits, tokens):
+    """``tokens`` [B, N] must be the argmax of ``logits`` [B, N, V]
+    wherever its top-2 gap exceeds LM_ATOL (a nearer tie may break
+    either way between two paths)."""
+    top = logits.float().topk(2, dim=-1)
+    decided = (top.values[..., 0] - top.values[..., 1]) > LM_ATOL
+    tokens = torch.as_tensor(tokens, device=logits.device)
+    wrong = int(((top.indices[..., 0] != tokens) & decided).sum())
+    log(f"lm {label}: tokens equal at {int(decided.sum()) - wrong} of "
+        f"{int(decided.sum())} steps whose top-2 gap > {LM_ATOL:g} "
+        f"({decided.numel()} steps)")
+    if wrong:
+        raise SmokeFailure(f"lm {label}: {wrong} tokens differ")
+    return dict(decided=int(decided.sum()), steps=decided.numel())
+
+
+def lm_bounds(cfg, param_bytes, batch, prompt, max_seq):
+    """The least card time (ms) of a prefill of batch x prompt tokens and
+    of one decode step at ``batch`` with a ``max_seq`` cache: the larger
+    of bytes over the HBM rate (every parameter read once; the decode
+    step also reads the K/V cache) and float32 operations over the FP32
+    peak (2 per multiply-add of the routed experts' and the other
+    layers' weights, the full score matrix and its product with V as the
+    reference computes them, and the head on the rows unembedded)."""
+    d, v = cfg.d_model, cfg.vocab_size
+    embed = v * d * (1 if cfg.tie_embeddings else 2)
+    per_token = 2 * (cfg.active_param_count() - embed)
+    attn = 4 * cfg.num_heads * cfg.resolved_head_dim * cfg.num_layers
+    head = 2 * v * d
+    kv = (2 * 4 * cfg.num_layers * batch * max_seq * cfg.num_kv_heads
+          * cfg.resolved_head_dim)
+
+    def bound(flops, nbytes):
+        return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
+
+    return (bound(batch * (prompt * per_token + head
+                           + attn * prompt * prompt), param_bytes),
+            bound(batch * (per_token + head + attn * max_seq),
+                  param_bytes + kv))
+
+
+def lm_model(torch, arch, dispatch, smi, full_checks):
+    """Phase 9 for one model and MoE dispatch: (a) and (d), and with
+    ``full_checks`` (b) and (c); returns its numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(arch), moe_dispatch=dispatch)
+    label = f"{arch} {dispatch}" if cfg.moe else arch
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    nparams = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"lm {label}: {nparams:,} parameters ({nbytes / 1e9:.2f} GB "
+        f"float32), allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} | {smi}")
+    res = dict(params=nparams, param_bytes=nbytes)
+
+    # (a) the engine at the reference CLI's defaults
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size,
+                            size=rng.integers(4, LM_PROMPT_LEN + 1))
+               .astype(np.int32) for _ in range(LM_BATCH)]
+    engine = ServingEngine(model, max_batch=LM_BATCH, max_seq=LM_MAX_SEQ)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.generate(prompts, max_new_tokens=LM_NEW_TOKENS)
+    res["generate_s"] = time.perf_counter() - t0
+    gen = np.stack([r.tokens for r in results]).astype(np.int64)
+    if (gen.shape != (LM_BATCH, LM_NEW_TOKENS)
+            or any(r.steps != LM_NEW_TOKENS for r in results)
+            or gen.min() < 0 or gen.max() >= cfg.vocab_size):
+        raise SmokeFailure(f"lm {label}: engine gave {gen.shape} tokens, "
+                           f"steps {[r.steps for r in results]}")
+    toks = lm_padded(prompts)
+    path, res["prefill_s"], steps = lm_path(torch, model, toks,
+                                            gen[:, :-1], LM_MAX_SEQ)
+    res["decode_step_s"] = float(np.mean(steps))
+    log(f"lm {label} (a): generate batch {LM_BATCH}, prompts "
+        f"{sorted(len(p) for p in prompts)}, {LM_NEW_TOKENS} new tokens "
+        f"in {res['generate_s']:.3f} s; req0 {gen[0, :8].tolist()}...")
+    res["a"] = lm_tokens_agree(torch, f"{label} (a) engine tokens vs the "
+                               "logits of its prefill/decode path", path,
+                               gen)
+    prof = lm_profile_decode(torch, model, toks, gen, LM_MAX_SEQ)
+    res["decode_profile"] = prof
+    log(f"lm {label} decode profile: {prof['device_events']} device "
+        f"events, {prof['device_s'] * 1e3:.2f} ms of device time in one "
+        f"step (unprofiled step {res['decode_step_s'] * 1e3:.2f} ms, "
+        f"profiled {prof['profiled_wall_s'] * 1e3:.2f} ms); device: "
+        + ", ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top_device"])
+        + "; host self CPU: "
+        + ", ".join(f"{k} x{c} {ms:.2f} ms" for k, c, ms in
+                    prof["top_host"]))
+
+    rng = np.random.default_rng(1)
+    long = rng.integers(1, cfg.vocab_size,
+                        size=(1, LM_LONG_PROMPT + LM_LONG_DECODE))
+    if full_checks:
+        # (b) the engine's path against a stepwise full forward
+        fwd = torch.stack([
+            model(torch.as_tensor(np.concatenate([toks, gen[:, :j]], 1),
+                                  device="cuda"))[0][:, -1]
+            for j in range(LM_NEW_TOKENS)], dim=1)
+        res["b"] = lm_logits_close(torch, f"{label} (b) engine path vs "
+                                   "stepwise forward", path, fwd)
+        res["b"].update(lm_tokens_agree(torch, f"{label} (b) engine tokens "
+                                        "vs stepwise forward", fwd, gen))
+        del fwd
+        # (c) the chunked-attention prefill and decode vs the forward
+        lpath, res["long_prefill_s"], _ = lm_path(
+            torch, model, long[:, :LM_LONG_PROMPT],
+            long[:, LM_LONG_PROMPT:], long.shape[1])
+        full = model(torch.as_tensor(long, device="cuda"))[0][
+            :, LM_LONG_PROMPT - 1:]
+        res["c"] = lm_logits_close(
+            torch, f"{label} (c) prefill 1x{LM_LONG_PROMPT} (chunked) + "
+            f"{LM_LONG_DECODE} decode vs forward 1x{long.shape[1]}",
+            lpath, full)
+        res["c"].update(lm_tokens_agree(torch, f"{label} (c)", full,
+                                        lpath.argmax(-1)))
+        del full, lpath
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(torch.as_tensor(long[:, :LM_LONG_PROMPT],
+                                      device="cuda"))
+        torch.cuda.synchronize()
+        res["long_prefill_s"] = time.perf_counter() - t0
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+
+    # (d) the same parameters on the CPU
+    short = rng.integers(1, cfg.vocab_size,
+                         size=(1, LM_CPU_PROMPT + LM_CPU_DECODE))
+    args = (short[:, :LM_CPU_PROMPT], short[:, LM_CPU_PROMPT:],
+            short.shape[1])
+    card = lm_path(torch, model, *args)[0].cpu()
+    t0 = time.perf_counter()
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    res["to_cpu_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = lm_path(torch, model, *args)[0]
+    res["cpu_s"] = time.perf_counter() - t0
+    res["d"] = lm_logits_close(
+        torch, f"{label} (d) card vs CPU, prefill 1x{LM_CPU_PROMPT} + "
+        f"{LM_CPU_DECODE} decode", card, host)
+    res["d"].update(lm_tokens_agree(torch, f"{label} (d)", host,
+                                    card.argmax(-1)))
+    del model, engine
+
+    plen = toks.shape[1]
+    b_long, _ = lm_bounds(cfg, nbytes, 1, LM_LONG_PROMPT, LM_LONG_PROMPT)
+    b_prefill, b_decode = lm_bounds(cfg, nbytes, LM_BATCH, plen, LM_MAX_SEQ)
+    res.update(bound_long_prefill_ms=b_long, bound_prefill_ms=b_prefill,
+               bound_decode_ms=b_decode,
+               seconds=time.perf_counter() - t_start)
+    log(f"lm {label} numbers | {smi}: "
+        f"prefill 1x{LM_LONG_PROMPT} "
+        f"{LM_LONG_PROMPT / res['long_prefill_s']:.0f} tok/s "
+        f"({res['long_prefill_s'] * 1e3:.1f} ms, bound {b_long:.1f} ms); "
+        f"prefill {LM_BATCH}x{plen} "
+        f"{LM_BATCH * plen / res['prefill_s']:.0f} tok/s "
+        f"({res['prefill_s'] * 1e3:.2f} ms, bound {b_prefill:.3f} ms); "
+        f"decode batch {LM_BATCH} {res['decode_step_s'] * 1e3:.2f} ms/step "
+        f"= {LM_BATCH / res['decode_step_s']:.0f} tok/s (bound "
+        f"{b_decode:.3f} ms/step); engine "
+        f"{LM_BATCH * LM_NEW_TOKENS / res['generate_s']:.0f} tok/s; peak "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB; CPU side {res['cpu_s']:.1f} s "
+        f"after a {res['to_cpu_s']:.1f} s move; {res['seconds']:.1f} s")
+    return res
+
+
+def run_lm(torch, smi):
+    """Phase 9: the LM serving path at full width, float32, TF32 off."""
+    from repro_torch.models import layers
+    if not (LM_LONG_PROMPT > layers.ATTN_CHUNK_THRESHOLD
+            and LM_LONG_PROMPT % layers.ATTN_CHUNK == 0):
+        raise SmokeFailure("lm: (c) would not take the chunked branch")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {}
+    with torch.inference_mode():
+        for i, (arch, dispatches) in enumerate(LM_MODELS):
+            for dispatch in dispatches:
+                out[f"{arch} {dispatch}"] = lm_model(torch, arch, dispatch,
+                                                     smi, i == 0)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"lm: phase took {out['seconds']:.1f} s")
+    return out
+
+
 # Which kernels each counted path must launch (the grouped paths run
 # tpf_match's test in the grouped kernel's prologue: no tpf_match launch).
 PATH_KERNELS = {
@@ -1274,6 +1585,8 @@ def main() -> int:
     at_paths, largest_chunk = check_path_geometries(torch, bj, tm, ops,
                                                     shapes_per_path)
     ends["path_kernels"] = time.perf_counter() - t_start
+    details["lm"] = run_lm(torch, smi)
+    ends["lm"] = time.perf_counter() - t_start
     log("phases end at (s): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in ends.items()))
     excess = {k: sum(p["excess_ms"] for p in at_paths[k].values())

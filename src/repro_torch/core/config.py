@@ -54,8 +54,8 @@ class ServerConfig:
       0 disables the fast path.
     * ``fuse_patterns`` -- cross-pattern kernel fusion (docs/fusion.md):
       when a batch carries requests for >= 2 distinct triple patterns,
-      the kernel backend serves the whole heterogeneous batch with fused
-      launches (one candidate stream, per-segment slot tables) instead
+      the accelerated backends serve the whole heterogeneous batch with
+      fused launches (one candidate stream, per-segment slot tables) instead
       of one grouped launch sequence per pattern. Fragments are
       byte-identical either way.
     * ``placement_policy`` -- sharded-backend data placement

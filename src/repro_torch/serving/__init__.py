@@ -1,4 +1,4 @@
-"""Serving: the brTPF HTTP edge of the port (no LM engine yet).
+"""Serving: the brTPF HTTP edge of the port and the KV-cache LM engine.
 
 * ``repro_torch.serving.http`` -- ASGI app over the async brTPF front
   end (GET/POST /fragment, GET /metrics), ``TestClient``, ``run_app``.
@@ -11,7 +11,12 @@
   hedged requests and deadline budgets over any transport.
 * ``repro_torch.serving.faults`` -- deterministic seeded fault injection
   (delay / error / drop / stall / crash) for chaos runs.
+* ``repro_torch.serving.engine`` -- the LM serving engine (prefill +
+  greedy decode over a preallocated KV cache), exported here.
 
 Each is the port of the module of the same name in ``repro.serving``
 and speaks the same bytes on the wire.
 """
+from .engine import GenerationResult, ServingEngine
+
+__all__ = ["GenerationResult", "ServingEngine"]

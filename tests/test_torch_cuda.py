@@ -540,3 +540,73 @@ def test_edge_router_on_card_equals_numpy_app(cuda_device):
     launched = grouped.launches - before
     assert got == bodies(ServerConfig(page_size=25), 1)
     assert launched > 0
+
+
+# The LM serving path: no hand-written kernel, plain torch ops on the card
+# against the same parameters on the CPU (float32, TF32 off).
+LM_ATOL = 1e-4
+
+
+def teacher_forced_logits(model, toks, generated, max_seq):
+    """The logits the engine sees: prefill of the left-padded prompts,
+    then a decode step per generated token. Returns [B, N, V]."""
+    dev = model.norm_f.device
+    logits, cache = model.prefill(torch.as_tensor(toks, device=dev),
+                                  max_seq=max_seq)
+    out = [logits[:, 0]]
+    for step in range(generated.shape[1] - 1):
+        tok = torch.as_tensor(generated[:, step:step + 1].astype(np.int64),
+                              device=dev)
+        logits, cache = model.decode_step(cache, tok, toks.shape[1] + step)
+        out.append(logits[:, 0])
+    return torch.stack(out, dim=1).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dispatch", [
+    ("qwen2-1.5b", "einsum"), ("granite-moe-1b-a400m", "einsum"),
+    ("granite-moe-1b-a400m", "gather")])
+def test_lm_engine_on_card_equals_cpu(cuda_device, monkeypatch, arch,
+                                      dispatch):
+    """The smoke-size engine on the card against the same parameters on
+    the CPU: along the CPU's tokens the logits agree within LM_ATOL, and
+    the card's tokens equal the CPU's up to the first step whose top-2
+    logit gap is within LM_ATOL (a near tie may break either way)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(reduced_for_smoke(get_arch(arch)),
+                              moe_dispatch=dispatch)
+    card = build_model(cfg, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(0))
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (9, 4, 6, 12)]
+    new, max_seq = 12, 32
+    got = ServingEngine(card, max_batch=4, max_seq=max_seq) \
+        .generate(prompts, max_new_tokens=new)
+    want = ServingEngine(cpu, max_batch=4, max_seq=max_seq) \
+        .generate(prompts, max_new_tokens=new)
+
+    toks = np.zeros((4, 12), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, 12 - len(p):] = p
+    generated = np.stack([r.tokens for r in want])
+    with torch.inference_mode():
+        lc = teacher_forced_logits(card, toks, generated, max_seq)
+        lh = teacher_forced_logits(cpu, toks, generated, max_seq)
+    assert float((lc - lh).abs().max()) <= LM_ATOL
+    top2 = lh.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).numpy()
+    for i in range(4):
+        assert got[i].steps == want[i].steps == new
+        for step in range(new):
+            if gap[i, step] <= LM_ATOL:
+                break
+            assert got[i].tokens[step] == want[i].tokens[step]

@@ -117,3 +117,21 @@ def test_entry_points_default_to_cuda():
                                           shards=2), replicas=2)
     assert ReplicaRouter(store, kcfg.replace(device="cpu"), replicas=2) \
         .replicas[1].server._selector.device.type == "cpu"
+    # the LM serving path: the model, its engine, the weight converter
+    # and the serve CLI
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+    cfg = reduced_for_smoke(get_arch("qwen2-1.5b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(build_model(cfg), max_batch=1, max_seq=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(cfg, {})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen2-1.5b", "--smoke"])
+    assert ServingEngine(build_model(cfg, device="cpu"), max_batch=1,
+                         max_seq=8).device.type == "cpu"
