@@ -73,7 +73,24 @@ printing its own lines:
    Logits must agree within the stated tolerances and tokens wherever
    the top-2 logit gap exceeds them. Prints parameters, peak memory,
    prefill and decode tokens/s and decode ms per step beside the card's
-   name and power limit, and each one's bound.
+   name and power limit, and each one's bound;
+10. train: LM training at ``qwen2-1.5b``'s full width (float32, TF32
+   off) through the brTPF data plane: a ``SyntheticCorpus`` of 300
+   documents, the train CLI's default selection, batch 4 x 64. (a) the
+   ``Trainer`` for 12 steps with a checkpoint every 4 and a failure
+   injected before step 9: it must restart once from step 8 and finish,
+   its losses equal to an uninterrupted run's; (b) one step at 4 x 2048
+   (four CE chunks, remat "full"): ms, tokens/s, peak memory, device
+   busy share and the bound; (c) ``grad_accum`` 4 against 1 on one batch
+   at the reference test's tolerances; (d) the gradients of the card
+   against the CPU at full width cut to 2 layers; (e)
+   ``granite-moe-1b-a400m`` at full width, a step per MoE dispatch;
+11. families: ``rwkv6-7b`` at full width (the engine at the serve CLI's
+   defaults, prefill + 8 decode steps against the forward, card vs CPU
+   cut to 2 layers), ``seamless-m4t-medium`` at full width (prefill with
+   ``enc_input`` + decode against the forward, a train step, card vs
+   CPU) and ``jamba-1.5-large-398b`` at ``reduced_for_smoke`` (card vs
+   CPU, a train step), within phase 9's limits.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -161,6 +178,40 @@ LM_ATOL = 1e-3
 LM_RTOL = 1e-4
 # float32 outside the tensor cores (TF32 off), NVIDIA data sheet.
 FP32_FLOPS_PER_S = 67e12
+# Phase 10: training at qwen2-1.5b's full width through the brTPF data
+# plane. (a) the train CLI's defaults (launch/train.py: 300 documents,
+# the default selection, batch 4 x seq 64, warmup_cosine(3e-4, 10,
+# steps)) for 12 steps, a checkpoint every 4, a failure injected before
+# step 9; (b) one step at 4 x 2048 (four CE chunks); (c) grad_accum 4 vs 1
+# on one batch with the reference test's optimizer and tolerances
+# (tests/test_loss_and_cli.py: constant lr 1e-2, no decay; rtol 1e-5 on
+# the loss, rtol 2e-3 / atol 2e-5 on the parameters); (d) card vs CPU at
+# full width cut to 2 layers; (e) granite-moe-1b-a400m, each dispatch.
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_SELECTION = "?d hasDomain code\n?d hasQuality q0"
+TRAIN_DOCS = 300
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 64, 12
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 9
+TRAIN_LONG_SEQ = 2048
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH = 2, 2
+# A resumed run replays the batches of its steps from the restored
+# state: its losses (about 12 at this vocabulary) equal the
+# uninterrupted run's up to the order of the card's atomic additions.
+TRAIN_RESUME_ATOL = 1e-3
+ACCUM_LR = 1e-2
+ACCUM_LOSS_RTOL, ACCUM_RTOL, ACCUM_ATOL = 1e-5, 2e-3, 2e-5
+# Adam's first step is lr * g / (|g| + eps): where the two runs'
+# gradients of an element agree to ACCUM_DECIDED (relative), the steps
+# agree within the tolerances above; elsewhere (a near-cancelling sum at
+# float32 noise) the element may move either way, by up to 2 lr.
+ACCUM_DECIDED = 1e-3
+# (d) and phase 11's gradients: float32 on both sides, the loss within
+# GRAD_LOSS_ATOL and each gradient leaf's largest absolute difference
+# within GRAD_RTOL of its largest absolute value.
+GRAD_LOSS_ATOL, GRAD_RTOL = 1e-4, 1e-4
+# Phase 11: the RWKV, encoder-decoder and Mamba-hybrid families.
+FAMILY_PROMPT, FAMILY_DECODE = 64, 8
+ENC_BATCH, ENC_FRAMES, ENC_PROMPT = 4, 8, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -1185,9 +1236,10 @@ def lm_padded(prompts):
     return toks
 
 
-def lm_path(torch, model, toks, feed, max_seq):
+def lm_path(torch, model, toks, feed, max_seq, enc_input=None):
     """The logits a greedy engine computes along ``feed``: prefill of
-    ``toks`` [B, P], then one decode step per token of ``feed`` [B, N].
+    ``toks`` [B, P], then one decode step per token of ``feed`` [B, N]
+    (an encoder-decoder with ``enc_input`` [B, F, d], a host array).
     Returns (logits [B, N + 1, V], prefill seconds, each decode step's
     seconds), each time on the host clock up to a synchronise."""
     dev = model.norm_f.device
@@ -1196,9 +1248,13 @@ def lm_path(torch, model, toks, feed, max_seq):
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    enc = enc_out = None
+    if enc_input is not None:
+        enc = torch.as_tensor(enc_input, device=dev)
+        enc_out = model.encode(enc)
     sync()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(torch.as_tensor(toks, device=dev),
+    logits, cache = model.prefill(torch.as_tensor(toks, device=dev), enc,
                                   max_seq=max_seq)
     sync()
     prefill_s = time.perf_counter() - t0
@@ -1206,7 +1262,8 @@ def lm_path(torch, model, toks, feed, max_seq):
     for j in range(feed.shape[1]):
         tok = torch.as_tensor(feed[:, j:j + 1], device=dev)
         t0 = time.perf_counter()
-        logits, cache = model.decode_step(cache, tok, toks.shape[1] + j)
+        logits, cache = model.decode_step(cache, tok, toks.shape[1] + j,
+                                          enc_out=enc_out)
         sync()
         steps.append(time.perf_counter() - t0)
         out.append(logits[:, 0])
@@ -1304,27 +1361,14 @@ def lm_bounds(cfg, param_bytes, batch, prompt, max_seq):
                   param_bytes + kv))
 
 
-def lm_model(torch, arch, dispatch, smi, full_checks):
-    """Phase 9 for one model and MoE dispatch: (a) and (d), and with
-    ``full_checks`` (b) and (c); returns its numbers."""
-    from repro_torch.configs import get_arch
-    from repro_torch.models.model import build_model
+def lm_engine(torch, model, label, res):
+    """(a): ``ServingEngine.generate`` at the reference serve CLI's
+    defaults; its tokens must be the argmax of its own prefill/decode
+    path's logits wherever the top-2 gap exceeds LM_ATOL. Records
+    generate, prefill and mean decode-step seconds in ``res``; returns
+    (padded prompts, generated tokens, the path's logits)."""
     from repro_torch.serving.engine import ServingEngine
-
-    t_start = time.perf_counter()
-    cfg = dataclasses.replace(get_arch(arch), moe_dispatch=dispatch)
-    label = f"{arch} {dispatch}" if cfg.moe else arch
-    torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg, device="cuda",
-                        generator=torch.Generator("cuda").manual_seed(0))
-    nparams = sum(p.numel() for p in model.parameters())
-    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log(f"lm {label}: {nparams:,} parameters ({nbytes / 1e9:.2f} GB "
-        f"float32), allow_tf32="
-        f"{torch.backends.cuda.matmul.allow_tf32} | {smi}")
-    res = dict(params=nparams, param_bytes=nbytes)
-
-    # (a) the engine at the reference CLI's defaults
+    cfg = model.cfg
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size,
                             size=rng.integers(4, LM_PROMPT_LEN + 1))
@@ -1350,6 +1394,51 @@ def lm_model(torch, arch, dispatch, smi, full_checks):
     res["a"] = lm_tokens_agree(torch, f"{label} (a) engine tokens vs the "
                                "logits of its prefill/decode path", path,
                                gen)
+    return toks, gen, path
+
+
+def lm_card_vs_cpu(torch, model, label, tokens, res, enc_input=None):
+    """(d): the prefill/decode path over ``tokens`` [B, P + LM_CPU_DECODE]
+    on the card, then the same model moved to the CPU; logits within the
+    limits, tokens where decided. Records seconds in ``res``."""
+    args = (tokens[:, :-LM_CPU_DECODE], tokens[:, -LM_CPU_DECODE:],
+            tokens.shape[1])
+    card = lm_path(torch, model, *args, enc_input=enc_input)[0].cpu()
+    t0 = time.perf_counter()
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    res["to_cpu_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = lm_path(torch, model, *args, enc_input=enc_input)[0]
+    res["cpu_s"] = time.perf_counter() - t0
+    res["d"] = lm_logits_close(
+        torch, f"{label} (d) card vs CPU, prefill {args[0].shape[0]}x"
+        f"{args[0].shape[1]} + {LM_CPU_DECODE} decode", card, host)
+    res["d"].update(lm_tokens_agree(torch, f"{label} (d)", host,
+                                    card.argmax(-1)))
+
+
+def lm_model(torch, arch, dispatch, smi, full_checks):
+    """Phase 9 for one model and MoE dispatch: (a) and (d), and with
+    ``full_checks`` (b) and (c); returns its numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(arch), moe_dispatch=dispatch)
+    label = f"{arch} {dispatch}" if cfg.moe else arch
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    nparams = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"lm {label}: {nparams:,} parameters ({nbytes / 1e9:.2f} GB "
+        f"float32), allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} | {smi}")
+    res = dict(params=nparams, param_bytes=nbytes)
+
+    # (a) the engine at the reference CLI's defaults
+    toks, gen, path = lm_engine(torch, model, label, res)
     prof = lm_profile_decode(torch, model, toks, gen, LM_MAX_SEQ)
     res["decode_profile"] = prof
     log(f"lm {label} decode profile: {prof['device_events']} device "
@@ -1400,22 +1489,8 @@ def lm_model(torch, arch, dispatch, smi, full_checks):
     # (d) the same parameters on the CPU
     short = rng.integers(1, cfg.vocab_size,
                          size=(1, LM_CPU_PROMPT + LM_CPU_DECODE))
-    args = (short[:, :LM_CPU_PROMPT], short[:, LM_CPU_PROMPT:],
-            short.shape[1])
-    card = lm_path(torch, model, *args)[0].cpu()
-    t0 = time.perf_counter()
-    model.to("cpu")
-    torch.cuda.empty_cache()
-    res["to_cpu_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    host = lm_path(torch, model, *args)[0]
-    res["cpu_s"] = time.perf_counter() - t0
-    res["d"] = lm_logits_close(
-        torch, f"{label} (d) card vs CPU, prefill 1x{LM_CPU_PROMPT} + "
-        f"{LM_CPU_DECODE} decode", card, host)
-    res["d"].update(lm_tokens_agree(torch, f"{label} (d)", host,
-                                    card.argmax(-1)))
-    del model, engine
+    lm_card_vs_cpu(torch, model, label, short, res)
+    del model
 
     plen = toks.shape[1]
     b_long, _ = lm_bounds(cfg, nbytes, 1, LM_LONG_PROMPT, LM_LONG_PROMPT)
@@ -1455,6 +1530,574 @@ def run_lm(torch, smi):
                                                      smi, i == 0)
     out["seconds"] = time.perf_counter() - t0
     log(f"lm: phase took {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 10: training ---------------------------------------------------------
+
+def train_tensors(torch, batch, device="cuda"):
+    return {k: torch.as_tensor(np.asarray(v, np.int64), device=device)
+            for k, v in batch.items()}
+
+
+def finite(torch, tensors):
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def grads_close(torch, label, got, want):
+    """Two grad steps' (grads, metrics): the loss within GRAD_LOSS_ATOL,
+    the global norm and every leaf within GRAD_RTOL (normwise)."""
+    from repro_torch.train.optimizer import global_norm
+    loss_err = abs(float(got[1]["loss"]) - float(want[1]["loss"]))
+    worst, worst_name = 0.0, None
+    for name, w in want[0].items():
+        g = got[0][name].to(w.device)
+        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    n_got, n_want = float(global_norm(got[0])), float(global_norm(want[0]))
+    norm_rel = abs(n_got - n_want) / n_want
+    log(f"{label}: loss {float(want[1]['loss']):.6f} err {loss_err:.3e} "
+        f"(atol {GRAD_LOSS_ATOL:g}); grad norm {n_want:.6f} rel err "
+        f"{norm_rel:.3e}; worst of {len(want[0])} leaves {worst:.3e} "
+        f"({worst_name}) (rtol {GRAD_RTOL:g})")
+    if not (finite(torch, got[0].values()) and finite(torch,
+                                                       want[0].values())):
+        raise SmokeFailure(f"{label}: non-finite gradients")
+    if loss_err > GRAD_LOSS_ATOL or worst > GRAD_RTOL or norm_rel > GRAD_RTOL:
+        raise SmokeFailure(f"{label}: gradients disagree")
+    return dict(loss=float(want[1]["loss"]), loss_err=loss_err,
+                grad_norm=n_want, norm_rel_err=norm_rel, worst_leaf=worst,
+                worst_name=worst_name)
+
+
+def grad_card_vs_cpu(torch, card, batch, label):
+    """One grad step of ``card`` (a model on the card) and of its copy on
+    the CPU over ``batch`` (host arrays)."""
+    import copy
+    from repro_torch.launch.steps import make_grad_step
+    host = copy.deepcopy(card).to("cpu")
+    got = make_grad_step(card)(dict(card.named_parameters()),
+                               {k: torch.as_tensor(v, device="cuda")
+                                for k, v in batch.items()})
+    t0 = time.perf_counter()
+    want = make_grad_step(host)(dict(host.named_parameters()),
+                                {k: torch.as_tensor(v)
+                                 for k, v in batch.items()})
+    out = grads_close(torch, label, got, want)
+    out["cpu_s"] = time.perf_counter() - t0
+    return out
+
+
+def timed_steps(torch, step_fn, params, opt_state, batch, n):
+    """``n`` train steps on one batch; returns (state, metrics, each
+    step's seconds up to a synchronise)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return params, opt_state, metrics, times
+
+
+def train_run(torch, cfg, batches, ckpt_dir, ckpt_every, fail_at, io):
+    """(a): the train CLI's loop for TRAIN_STEPS steps; the batch of
+    each step is the one of the step it is, so a run that restores a
+    checkpoint replays the batches of the steps it replays. With
+    ``fail_at``, the failure hook raises once before that step."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    params = dict(model.named_parameters())
+    opt = AdamW(learning_rate=warmup_cosine(3e-4, 10, TRAIN_STEPS))
+    step_fn = make_train_step(model, opt)
+    steps = []
+
+    def timed(params, opt_state, batch):
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        return out
+
+    fired = []
+
+    def hook(step):
+        if step == fail_at and not fired:
+            fired.append(step)
+            raise RuntimeError(f"injected failure before step {step}")
+
+    trainer = Trainer(TrainerConfig(total_steps=TRAIN_STEPS,
+                                    ckpt_dir=ckpt_dir,
+                                    ckpt_every=ckpt_every, ckpt_keep=1),
+                      timed, params, opt.init(params), failure_hook=hook)
+    feed = (batches[trainer.step] for _ in iter(int, 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = trainer.train(feed)
+    wall = time.perf_counter() - t0
+    return model, trainer, report, dict(wall_s=wall, step_s=steps,
+                                        saves=list(io["save"]),
+                                        restores=list(io["restore"]))
+
+
+def train_resume(torch, cfg, pipe, res):
+    """(a): an uninterrupted run and a run that fails before step
+    TRAIN_FAIL_AT, resumes from its step-8 checkpoint and finishes; the
+    losses of the same steps agree within TRAIN_RESUME_ATOL. Returns the
+    resumed run's model and trainer."""
+    import shutil
+    import tempfile
+    ck = importlib.import_module("repro_torch.train.checkpoint")
+    it = iter(pipe)
+    batches = [train_tensors(torch, next(it)) for _ in range(TRAIN_STEPS)]
+    io = {"save": [], "restore": []}
+    save, restore = ck.save, ck.restore
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            io[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                                dir=ROOT / "build")
+    ck.save, ck.restore = timed("save", save), timed("restore", restore)
+    try:
+        model, _, plain, plain_io = train_run(
+            torch, cfg, batches, ckpt_dir + "/plain", TRAIN_STEPS + 1,
+            None, io)
+        del model
+        torch.cuda.empty_cache()
+        io["save"].clear()
+        model, trainer, resumed, resumed_io = train_run(
+            torch, cfg, batches, ckpt_dir + "/resumed", TRAIN_CKPT_EVERY,
+            TRAIN_FAIL_AT, io)
+        free = shutil.disk_usage(ckpt_dir).free
+    finally:
+        ck.save, ck.restore = save, restore
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in importlib.import_module(
+                          "repro_torch.train.tree").leaves(
+                              trainer._state_tree()))
+    # the resumed run: steps 0..FAIL_AT-1, then from the restored step
+    back = TRAIN_FAIL_AT - (TRAIN_FAIL_AT % TRAIN_CKPT_EVERY)
+    want = plain.losses[:TRAIN_FAIL_AT] + plain.losses[back:]
+    err = max(abs(a - b) for a, b in zip(resumed.losses, want))
+    ok = (resumed.restarts == 1 and trainer.step == TRAIN_STEPS
+          and len(resumed.losses) == len(want) and err <= TRAIN_RESUME_ATOL
+          and np.isfinite(resumed.losses).all())
+    res["a"] = dict(
+        losses_plain=plain.losses, losses_resumed=resumed.losses,
+        restarts=resumed.restarts, steps_run=resumed.steps_run,
+        max_loss_err=err, state_bytes=state_bytes, disk_free=free,
+        plain=plain_io, resumed=resumed_io,
+        step_ms=float(np.median(plain_io["step_s"][1:]) * 1e3))
+    log(f"train (a): {TRAIN_STEPS} steps of batch {TRAIN_BATCH}x"
+        f"{TRAIN_SEQ}: loss {plain.losses[0]:.4f} -> "
+        f"{plain.losses[-1]:.4f}; a failure before step {TRAIN_FAIL_AT}, "
+        f"{resumed.restarts} restart from step {back}, "
+        f"{resumed.steps_run} steps run, losses of the same steps within "
+        f"{err:.3e} (atol {TRAIN_RESUME_ATOL:g})")
+    log(f"train (a) timings: step {res['a']['step_ms']:.1f} ms (median); "
+        f"plain run {plain_io['wall_s']:.1f} s, resumed run "
+        f"{resumed_io['wall_s']:.1f} s with saves "
+        + ", ".join(f"{t:.1f}" for t in resumed_io["saves"])
+        + " s and restore "
+        + ", ".join(f"{t:.1f}" for t in resumed_io["restores"])
+        + f" s of {state_bytes / 2**30:.2f} GiB (disk free "
+        f"{free / 2**30:.0f} GiB)")
+    if not ok:
+        raise SmokeFailure(f"train (a): restarts {resumed.restarts}, step "
+                           f"{trainer.step}, losses {resumed.losses} vs "
+                           f"{want}")
+    return model, trainer
+
+
+def train_long_step(torch, model, trainer, corpus, res, smi):
+    """(b): one train step at TRAIN_BATCH x TRAIN_LONG_SEQ (four CE
+    chunks, remat "full"), after a first one; step ms, tokens/s, peak
+    memory, device busy share under torch.profiler, and the bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import BrTPFDataPipeline
+    from repro_torch.models.model import Model
+    cfg = model.cfg
+    pipe = BrTPFDataPipeline(corpus, TRAIN_SELECTION, batch_size=TRAIN_BATCH,
+                             seq_len=TRAIN_LONG_SEQ)
+    batch = train_tensors(torch, next(iter(pipe)))
+    chunks = TRAIN_LONG_SEQ // Model.CE_CHUNK
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, metrics, times = timed_steps(
+        torch, trainer.step_fn, trainer.params, trainer.opt_state, batch, 1)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, metrics = trainer.step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = list(device_events(torch, prof))
+    busy = sum(ns for _, ns in events) / 1e9
+    by_name = Counter()
+    for name, ns in events:
+        by_name[name] += ns / 1e6
+    n = sum(p.numel() for p in params.values())
+    tokens = TRAIN_BATCH * TRAIN_LONG_SEQ
+    flops_ms = 8 * n * tokens / FP32_FLOPS_PER_S * 1e3
+    # the optimizer reads parameter, gradient and both moments and writes
+    # parameter and both moments, float32
+    opt_ms = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
+    res["b"] = dict(
+        step_ms=times[0] * 1e3, profiled_ms=wall * 1e3,
+        tokens_per_s=tokens / times[0], peak_bytes=peak,
+        device_s=busy, busy_share=busy / wall, device_events=len(events),
+        top_device=by_name.most_common(6), loss=float(metrics["loss"]),
+        bound_ms=max(flops_ms, opt_ms), flops_bound_ms=flops_ms,
+        opt_bound_ms=opt_ms, ce_chunks=chunks, remat=cfg.remat)
+    log(f"train (b) {cfg.name} | {smi}: step {TRAIN_BATCH}x{TRAIN_LONG_SEQ} "
+        f"({chunks} CE chunks, remat {cfg.remat}) {times[0] * 1e3:.1f} ms = "
+        f"{tokens / times[0]:.0f} tok/s, loss {float(metrics['loss']):.4f}; "
+        f"bound {max(flops_ms, opt_ms):.1f} ms (8 N tokens at FP32 peak "
+        f"{flops_ms:.1f} ms, optimizer bytes {opt_ms:.1f} ms); peak "
+        f"{peak / 2**30:.2f} GiB; profiled step {wall * 1e3:.1f} ms, "
+        f"device busy {busy * 1e3:.1f} ms = {busy / wall:.3f} over "
+        f"{len(events)} device events; top: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in by_name.most_common(4)))
+    if not np.isfinite(float(metrics["loss"])):
+        raise SmokeFailure("train (b): non-finite loss")
+
+
+def train_accum(torch, model, batch, res):
+    """(c): grad_accum 4 against 1 from the same parameters and a fresh
+    optimizer state, on one batch. The gradients of both (one backward,
+    and the sum of 4 microbatches' over 4) say which elements are
+    decided."""
+    from repro_torch.launch.steps import make_grad_step, make_train_step
+    from repro_torch.train.optimizer import AdamW, constant_lr
+    params = dict(model.named_parameters())
+    opt = AdamW(learning_rate=constant_lr(ACCUM_LR), weight_decay=0.0)
+    start = {n: p.detach().clone() for n, p in params.items()}
+    grad_step = make_grad_step(model)
+    whole, _ = grad_step(params, batch)
+    summed = None
+    for i in range(4):
+        micro = {k: v[i * len(v) // 4:(i + 1) * len(v) // 4]
+                 for k, v in batch.items()}
+        grads, _ = grad_step(params, micro)
+        if summed is None:
+            summed = grads
+        else:
+            for n, g in grads.items():
+                summed[n].add_(g)
+    decided = {n: (summed[n] * 0.25 - g).abs() <= ACCUM_DECIDED * g.abs()
+               for n, g in whole.items()}
+    del whole, summed, grads
+
+    def step(k):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(start[n])
+        _, _, m = make_train_step(model, opt, grad_accum=k)(
+            params, opt.init(params), batch)
+        return float(m["loss"])
+
+    loss1 = step(1)
+    after1 = {n: p.detach().clone() for n, p in params.items()}
+    loss4 = step(4)
+    outside = undecided = bad = total = 0
+    worst = 0.0
+    for n, p in params.items():
+        diff = (p.detach() - after1[n]).abs()
+        out = diff > ACCUM_ATOL + ACCUM_RTOL * after1[n].abs()
+        outside += int(out.sum())
+        undecided += int((out & ~decided[n]).sum())
+        bad += int((out & decided[n]).sum()
+                   + (diff > 2 * ACCUM_LR + ACCUM_ATOL).sum())
+        total += p.numel()
+        worst = max(worst, float(diff.max()))
+    del after1, start, decided
+    loss_rel = abs(loss4 - loss1) / abs(loss1)
+    res["c"] = dict(loss1=loss1, loss4=loss4, loss_rel_err=loss_rel,
+                    params=total, outside=outside, undecided=undecided,
+                    bad=bad, max_abs_diff=worst)
+    log(f"train (c) grad_accum 4 vs 1: loss {loss1:.6f} vs {loss4:.6f} rel "
+        f"{loss_rel:.3e} (rtol {ACCUM_LOSS_RTOL:g}); {total:,} parameters, "
+        f"{outside} outside rtol {ACCUM_RTOL:g} / atol {ACCUM_ATOL:g}, "
+        f"{undecided} of them where the gradients differ by more than "
+        f"{ACCUM_DECIDED:g} (within 2 lr); largest difference {worst:.3e}")
+    if loss_rel > ACCUM_LOSS_RTOL or bad:
+        raise SmokeFailure(f"train (c): grad_accum 4 differs from 1 "
+                           f"({loss_rel}, {bad} parameters)")
+
+
+def train_moe(torch, smi):
+    """(e): granite-moe-1b-a400m at full width, each MoE dispatch: a grad
+    step (loss, aux and gradients finite), then two train steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_grad_step, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    out = {}
+    rng = np.random.default_rng(3)
+    for dispatch in ("einsum", "gather"):
+        cfg = dataclasses.replace(get_arch("granite-moe-1b-a400m"),
+                                  moe_dispatch=dispatch)
+        toks = rng.integers(1, cfg.vocab_size,
+                            size=(TRAIN_BATCH, TRAIN_SEQ + 1))
+        batch = train_tensors(torch, {"tokens": toks[:, :-1],
+                                      "targets": toks[:, 1:]})
+        model = build_model(cfg, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+        params = dict(model.named_parameters())
+        grads, m = make_grad_step(model)(params, batch)
+        ok = finite(torch, grads.values()) and finite(
+            torch, [m["loss"], m["moe_aux"]])
+        del grads
+        opt = AdamW(learning_rate=warmup_cosine(3e-4, 10, TRAIN_STEPS))
+        params, _, metrics, times = timed_steps(
+            torch, make_train_step(model, opt), params, opt.init(params),
+            batch, 2)
+        ok = ok and finite(torch, params.values())
+        out[dispatch] = dict(loss=float(m["loss"]),
+                             moe_aux=float(m["moe_aux"]),
+                             step_ms=[t * 1e3 for t in times])
+        log(f"train (e) granite-moe-1b-a400m {dispatch} | {smi}: loss "
+            f"{float(m['loss']):.4f}, moe_aux {float(m['moe_aux']):.4f}, "
+            f"gradients and updated parameters finite: {ok}; steps "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ} "
+            + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms")
+        del model, params
+        torch.cuda.empty_cache()
+        if not ok:
+            raise SmokeFailure(f"train (e) {dispatch}: non-finite values")
+    return out
+
+
+def run_train(torch, smi):
+    """Phase 10: training at qwen2-1.5b's full width, float32, TF32 off."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import BrTPFDataPipeline, SyntheticCorpus
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    corpus = SyntheticCorpus.generate(num_docs=TRAIN_DOCS,
+                                      vocab_size=cfg.vocab_size, seed=0)
+    pipe = BrTPFDataPipeline(corpus, TRAIN_SELECTION,
+                             batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    res = dict(selected_docs=pipe.stats.selected_docs,
+               requests=pipe.stats.num_requests,
+               data_received=pipe.stats.data_received)
+    log(f"train: {cfg.name} at full width, {cfg.num_layers} layers; brTPF "
+        f"selection of {TRAIN_DOCS} documents: {pipe.stats.selected_docs} "
+        f"selected in {pipe.stats.num_requests} requests "
+        f"({pipe.stats.data_received} triples received)")
+    model, trainer = train_resume(torch, cfg, pipe, res)
+    train_long_step(torch, model, trainer, corpus, res, smi)
+    del trainer
+    torch.cuda.empty_cache()
+    train_accum(torch, model, train_tensors(torch, next(iter(pipe))), res)
+    del model
+    torch.cuda.empty_cache()
+
+    short = dataclasses.replace(cfg, num_layers=TRAIN_CPU_LAYERS)
+    card = build_model(short, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(0))
+    batch = {k: np.asarray(v[:TRAIN_CPU_BATCH], np.int64)
+             for k, v in next(iter(pipe)).items()}
+    res["d"] = grad_card_vs_cpu(
+        torch, card, batch, f"train (d) {cfg.name} cut to "
+        f"{TRAIN_CPU_LAYERS} layers, grad step {TRAIN_CPU_BATCH}x"
+        f"{TRAIN_SEQ}, card vs CPU")
+    del card
+    torch.cuda.empty_cache()
+    res["e"] = train_moe(torch, smi)
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"train: phase took {res['seconds']:.1f} s")
+    return res
+
+
+# -- phase 11: the RWKV, encoder-decoder and Mamba-hybrid families ---------------
+
+def family_rwkv(torch, smi):
+    """rwkv6-7b at full width: the engine at the serve CLI's defaults,
+    prefill + FAMILY_DECODE decode steps against the forward (the chunked
+    WKV against the stepwise state), card vs CPU cut to 2 layers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    cfg = get_arch("rwkv6-7b")
+    label = cfg.name
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    nparams = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    res = dict(params=nparams, param_bytes=nbytes)
+    log(f"lm {label}: {nparams:,} parameters ({nbytes / 2**30:.2f} GiB "
+        f"float32) | {smi}")
+    toks, gen, _ = lm_engine(torch, model, label, res)
+    seq = np.random.default_rng(1).integers(
+        1, cfg.vocab_size, size=(1, FAMILY_PROMPT + FAMILY_DECODE))
+    path, res["prefill_1_s"], _ = lm_path(
+        torch, model, seq[:, :FAMILY_PROMPT], seq[:, FAMILY_PROMPT:],
+        seq.shape[1])
+    full = model(torch.as_tensor(seq, device="cuda"))[0][
+        :, FAMILY_PROMPT - 1:]
+    res["c"] = lm_logits_close(
+        torch, f"{label} prefill 1x{FAMILY_PROMPT} + {FAMILY_DECODE} decode "
+        f"(stepwise WKV state) vs forward 1x{seq.shape[1]} (chunked WKV)",
+        path, full)
+    res["c"].update(lm_tokens_agree(torch, label, full, path.argmax(-1)))
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model, full, path
+    torch.cuda.empty_cache()
+    b_prefill, b_decode = lm_bounds(cfg, nbytes, LM_BATCH, toks.shape[1],
+                                    LM_MAX_SEQ)
+    res.update(bound_prefill_ms=b_prefill, bound_decode_ms=b_decode)
+    log(f"lm {label} numbers | {smi}: prefill {LM_BATCH}x{toks.shape[1]} "
+        f"{res['prefill_s'] * 1e3:.2f} ms (bound {b_prefill:.2f} ms); "
+        f"prefill 1x{FAMILY_PROMPT} {res['prefill_1_s'] * 1e3:.2f} ms; "
+        f"decode batch {LM_BATCH} {res['decode_step_s'] * 1e3:.2f} ms/step = "
+        f"{LM_BATCH / res['decode_step_s']:.0f} tok/s (bound "
+        f"{b_decode:.2f} ms/step); engine "
+        f"{LM_BATCH * LM_NEW_TOKENS / res['generate_s']:.0f} tok/s; peak "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB")
+
+    short = dataclasses.replace(cfg, num_layers=2)
+    model = build_model(short, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    lm_card_vs_cpu(torch, model, f"{label} cut to 2 layers",
+                   np.random.default_rng(2).integers(
+                       1, cfg.vocab_size,
+                       size=(1, LM_CPU_PROMPT + LM_CPU_DECODE)), res)
+    return res
+
+
+def family_encdec(torch, smi):
+    """seamless-m4t-medium at full width: prefill with enc_input plus
+    decode against the forward, one train step, card vs CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    cfg = get_arch("seamless-m4t-medium")
+    label = cfg.name
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    nparams = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    res = dict(params=nparams, param_bytes=nbytes)
+    rng = np.random.default_rng(4)
+    enc = rng.normal(size=(ENC_BATCH, ENC_FRAMES, cfg.d_model)) \
+        .astype(np.float32)
+    seq = rng.integers(1, cfg.vocab_size,
+                       size=(ENC_BATCH, ENC_PROMPT + FAMILY_DECODE))
+    with torch.inference_mode():
+        path, res["prefill_s"], steps = lm_path(
+            torch, model, seq[:, :ENC_PROMPT], seq[:, ENC_PROMPT:],
+            seq.shape[1], enc_input=enc)
+        full = model(torch.as_tensor(seq, device="cuda"),
+                     torch.as_tensor(enc, device="cuda"))[0][
+            :, ENC_PROMPT - 1:]
+    res["decode_step_s"] = float(np.mean(steps))
+    log(f"lm {label}: {nparams:,} parameters ({nbytes / 2**30:.2f} GiB "
+        f"float32) | {smi}")
+    res["c"] = lm_logits_close(
+        torch, f"{label} prefill {ENC_BATCH}x{ENC_PROMPT} with enc_input "
+        f"{enc.shape} + {FAMILY_DECODE} decode vs forward", path, full)
+    res["c"].update(lm_tokens_agree(torch, label, full, path.argmax(-1)))
+    del path, full
+
+    toks = rng.integers(1, cfg.vocab_size, size=(ENC_BATCH, TRAIN_SEQ + 1))
+    batch = train_tensors(torch, {"tokens": toks[:, :-1],
+                                  "targets": toks[:, 1:]})
+    batch["enc_input"] = torch.as_tensor(enc, device="cuda")
+    params = dict(model.named_parameters())
+    opt = AdamW(learning_rate=warmup_cosine(3e-4, 10, TRAIN_STEPS))
+    params, _, metrics, times = timed_steps(
+        torch, make_train_step(model, opt), params, opt.init(params), batch,
+        1)
+    ok = finite(torch, params.values()) and np.isfinite(
+        float(metrics["loss"]))
+    res["train"] = dict(loss=float(metrics["loss"]), step_ms=times[0] * 1e3)
+    log(f"lm {label} train step {ENC_BATCH}x{TRAIN_SEQ} with enc_input: "
+        f"loss {float(metrics['loss']):.4f}, {times[0] * 1e3:.1f} ms, "
+        f"updated parameters finite: {ok}; decode batch {ENC_BATCH} "
+        f"{res['decode_step_s'] * 1e3:.2f} ms/step, prefill "
+        f"{res['prefill_s'] * 1e3:.2f} ms (bytes bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.2f} ms)")
+    if not ok:
+        raise SmokeFailure(f"{label}: non-finite train step")
+    with torch.inference_mode():
+        lm_card_vs_cpu(torch, model, label,
+                       seq[:, :LM_CPU_PROMPT // 4 + LM_CPU_DECODE], res,
+                       enc_input=enc)
+    return res
+
+
+def family_hybrid(torch, smi):
+    """jamba-1.5-large-398b at reduced_for_smoke (no depth of its full
+    width fits one card): a grad step and the prefill/decode path card
+    vs CPU, then a train step."""
+    import copy
+
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    cfg = reduced_for_smoke(get_arch("jamba-1.5-large-398b"))
+    label = cfg.name
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(5)
+    toks = rng.integers(1, cfg.vocab_size, size=(2, 17))
+    res = dict(grads=grad_card_vs_cpu(
+        torch, model, {"tokens": toks[:, :-1], "targets": toks[:, 1:]},
+        f"{label} grad step 2x16, card vs CPU"))
+    host = copy.deepcopy(model)
+    with torch.inference_mode():
+        lm_card_vs_cpu(torch, host, label, toks, res)
+    params = dict(model.named_parameters())
+    opt = AdamW(learning_rate=warmup_cosine(3e-4, 10, TRAIN_STEPS))
+    batch = train_tensors(torch, {"tokens": toks[:, :-1],
+                                  "targets": toks[:, 1:]})
+    params, _, metrics, times = timed_steps(
+        torch, make_train_step(model, opt), params, opt.init(params), batch,
+        1)
+    ok = finite(torch, params.values()) and np.isfinite(
+        float(metrics["loss"]))
+    res["train"] = dict(loss=float(metrics["loss"]), step_ms=times[0] * 1e3)
+    log(f"lm {label} train step 2x16: loss {float(metrics['loss']):.4f}, "
+        f"moe_aux {float(metrics['moe_aux']):.4f}, {times[0] * 1e3:.1f} ms, "
+        f"updated parameters finite: {ok} | {smi}")
+    if not ok:
+        raise SmokeFailure(f"{label}: non-finite train step")
+    return res
+
+
+def run_families(torch, smi):
+    """Phase 11: rwkv6-7b and seamless-m4t-medium at full width, jamba at
+    reduced_for_smoke; float32, TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = {"rwkv6-7b": family_rwkv(torch, smi)}
+    torch.cuda.empty_cache()
+    out["seamless-m4t-medium"] = family_encdec(torch, smi)
+    torch.cuda.empty_cache()
+    out["jamba-1.5-large-398b"] = family_hybrid(torch, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"families: phase took {out['seconds']:.1f} s")
     return out
 
 
@@ -1587,6 +2230,10 @@ def main() -> int:
     ends["path_kernels"] = time.perf_counter() - t_start
     details["lm"] = run_lm(torch, smi)
     ends["lm"] = time.perf_counter() - t_start
+    details["train"] = run_train(torch, smi)
+    ends["train"] = time.perf_counter() - t_start
+    details["families"] = run_families(torch, smi)
+    ends["families"] = time.perf_counter() - t_start
     log("phases end at (s): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in ends.items()))
     excess = {k: sum(p["excess_ms"] for p in at_paths[k].values())

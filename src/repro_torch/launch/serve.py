@@ -35,6 +35,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = reduced_for_smoke(cfg)
+    if cfg.encoder_layers:
+        raise SystemExit("enc-dec serving demo: the engine serves "
+                         "decoder-only models; an encoder-decoder decodes "
+                         "through Model.prefill/decode_step with enc_input")
     model = build_model(cfg, device=args.device)
     engine = ServingEngine(model, max_batch=args.batch,
                            max_seq=args.max_seq)

@@ -1,2 +1,2 @@
-"""The language-model decoders of the port (dense and MoE attention
-families), the PyTorch counterpart of ``repro.models``."""
+"""The language models of the port (dense, MoE, RWKV, Mamba-hybrid and
+encoder-decoder families), the PyTorch counterpart of ``repro.models``."""

@@ -11,10 +11,11 @@ The arithmetic follows the reference step for step: RMSNorm in float32,
 RoPE on split halves (NeoX layout) in float32 with theta 10000, grouped
 query attention with the query heads grouped as ``(Hkv, G)``, masked
 scores filled with ``-1e30`` and softmax in float32, query chunks of
-``ATTN_CHUNK`` for long sequences. Attention masks causally and nothing
-else: left-padded prompts attend to their pad tokens, as in the
+``ATTN_CHUNK`` for long sequences. Decoder attention masks causally and
+nothing else: left-padded prompts attend to their pad tokens, as in the
 reference, so attention is not routed through
-``scaled_dot_product_attention``.
+``scaled_dot_product_attention``. The encoder's self-attention and the
+cross-attention do not mask.
 """
 from __future__ import annotations
 
@@ -48,21 +49,39 @@ def empty_param(*shape: int, dtype: torch.dtype,
                         requires_grad=False)
 
 
+# Leaves drawn from a normal of a fixed standard deviation, and leaves
+# filled with a constant, at init (the reference's ``init_embeddings``,
+# ``init_mamba`` and ``init_time_mix``/``init_channel_mix``).
+NORMAL_STD = {"tok": EMBED_INIT_STD, "conv_w": 0.2, "u": 0.3}
+FILL = {"mu": 0.5, "w0": -0.6, "dt_bias": -4.6, "d_skip": 1.0,
+        "ln_scale": 1.0}
+
+
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Random init with the reference's distributions, drawn in float32
     from ``generator`` (on the parameters' device) in parameter order:
 
     * matrices ``[..., d_in, d_out]``: normal, std ``d_in ** -0.5``
-      (``dense_param``, the untied ``out`` head, ``init_moe``);
-    * the token table ``tok``: normal, std 0.02;
-    * norm scales: ones; QKV biases: zeros.
+      (``dense_param``, the untied ``out`` head, ``init_moe``, the Mamba
+      and RWKV projections);
+    * ``NORMAL_STD``'s leaves: normal of that std (the token table
+      ``tok`` 0.02, Mamba's ``conv_w`` 0.2, RWKV's bonus ``u`` 0.3);
+    * ``FILL``'s leaves: that constant (RWKV's lerps ``mu`` 0.5 and decay
+      bias ``w0`` -0.6, Mamba's ``dt_bias`` -4.6, ...);
+    * Mamba's ``a_log [din, N]``: ``log(1..N)`` in every row;
+    * norm scales: ones; biases: zeros.
     """
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if p.dim() >= 2:
-            std = (EMBED_INIT_STD if leaf == "tok"
-                   else p.shape[-2] ** -0.5)
+        if leaf in FILL:
+            p.fill_(FILL[leaf])
+        elif leaf == "a_log":
+            n = p.shape[-1]
+            p.copy_(torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                           device=p.device)).expand(p.shape))
+        elif leaf in NORMAL_STD or p.dim() >= 2:
+            std = NORMAL_STD.get(leaf) or p.shape[-2] ** -0.5
             p.copy_(torch.randn(p.shape, generator=generator,
                                 device=p.device, dtype=torch.float32)
                     * std)
@@ -155,16 +174,28 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return F.softmax(scores.float(), dim=-1).to(scores.dtype)
 
 
+def softmax(scores: torch.Tensor) -> torch.Tensor:
+    """Softmax in float32 over the last axis, unmasked (the encoder's
+    self-attention and cross-attention)."""
+    return F.softmax(scores.float(), dim=-1).to(scores.dtype)
+
+
 class Attention(nn.Module):
-    """Causal self-attention with grouped KV heads and an optional QKV
-    bias (``wq [d, Hq*hd]``, ``wk``/``wv [d, Hkv*hd]``, ``wo [Hq*hd, d]``).
-    """
+    """Self-attention with grouped KV heads and an optional QKV bias
+    (``wq [d, Hq*hd]``, ``wk``/``wv [d, Hkv*hd]``, ``wo [Hq*hd, d]``),
+    causal unless built with ``causal=False`` (the encoder's). ``cross``
+    uses the same weights as an encoder-decoder cross-attention.
+
+    The decode state of a layer is ``STATE``: its K and V caches."""
+
+    STATE = ("k", "v")
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device) -> None:
+                 device: torch.device, causal: bool = True) -> None:
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         self.cfg = cfg
+        self.causal = causal
         self.wq = empty_param(d, cfg.num_heads * hd, dtype=dtype,
                               device=device)
         self.wk = empty_param(d, cfg.num_kv_heads * hd, dtype=dtype,
@@ -181,26 +212,36 @@ class Attention(nn.Module):
             self.bv = empty_param(cfg.num_kv_heads * hd, dtype=dtype,
                                   device=device)
 
-    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor):
+    def _heads(self, x: torch.Tensor, kv: torch.Tensor):
+        """Queries from ``x``, keys and values from ``kv``, split into
+        heads, unrotated."""
         cfg = self.cfg
-        b, s, _ = x.shape
         hd = cfg.resolved_head_dim
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        q, k, v = x @ self.wq, kv @ self.wk, kv @ self.wv
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.reshape(b, s, cfg.num_heads, hd)
-        k = k.reshape(b, s, cfg.num_kv_heads, hd)
-        v = v.reshape(b, s, cfg.num_kv_heads, hd)
-        if cfg.rope:
+        return (q.reshape(*x.shape[:2], cfg.num_heads, hd),
+                k.reshape(*kv.shape[:2], cfg.num_kv_heads, hd),
+                v.reshape(*kv.shape[:2], cfg.num_kv_heads, hd))
+
+    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        q, k, v = self._heads(x, x)
+        if self.cfg.rope:
+            hd = self.cfg.resolved_head_dim
             q = apply_rope(q, positions, hd)
             k = apply_rope(k, positions, hd)
         return q, k, v
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Causal self-attention for train/prefill. Returns
-        ``(out, k, v)`` with the rotated K/V, so that prefill fills the
-        decode cache in the same pass.
+    def _probs(self, scores: torch.Tensor, q_pos: torch.Tensor,
+               k_pos: torch.Tensor) -> torch.Tensor:
+        if self.causal:
+            return masked_softmax(scores, q_pos[:, None] >= k_pos[None, :])
+        return softmax(scores)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """Self-attention for train/prefill. Returns ``(out, (k, v))``
+        with the rotated K/V, so that prefill fills the decode cache in
+        the same pass.
 
         For S > ATTN_CHUNK_THRESHOLD with S a multiple of ATTN_CHUNK,
         loops over query chunks, so the live score buffer is
@@ -211,25 +252,30 @@ class Attention(nn.Module):
         pos = positions[0]
         chunk = ATTN_CHUNK
         if s <= ATTN_CHUNK_THRESHOLD or s % chunk != 0:
-            probs = masked_softmax(gqa_scores(q, k, kv_heads),
-                                   pos[:, None] >= pos[None, :])
-            out = gqa_out(probs, v)
+            out = gqa_out(self._probs(gqa_scores(q, k, kv_heads), pos, pos),
+                          v)
         else:
             outs = []
             for lo in range(0, s, chunk):
-                qi = pos[lo:lo + chunk]
-                probs = masked_softmax(
+                probs = self._probs(
                     gqa_scores(q[:, lo:lo + chunk], k, kv_heads),
-                    qi[:, None] >= pos[None, :])
+                    pos[lo:lo + chunk], pos)
                 outs.append(gqa_out(probs, v))
             out = torch.cat(outs, dim=1)
-        return out @ self.wo, k, v
+        return out @ self.wo, (k, v)
 
-    def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
-               cache_v: torch.Tensor, pos: int) -> torch.Tensor:
-        """One-token decode: x (B,1,d); cache_[kv] (B,S,Hkv,hd). Writes
-        the new K/V at ``pos`` in place and attends to positions
-        ``<= pos``."""
+    def cross(self, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+        """Encoder-decoder cross-attention: queries from x (B,Sq,d), keys
+        and values from enc_out (B,Sk,d). No rotation, no mask."""
+        q, k, v = self._heads(x, enc_out.to(x.dtype))
+        probs = softmax(gqa_scores(q, k, self.cfg.num_kv_heads))
+        return gqa_out(probs, v) @ self.wo
+
+    def decode(self, x: torch.Tensor, state, pos: int) -> torch.Tensor:
+        """One-token decode: x (B,1,d); ``state`` this layer's
+        ``(cache_k, cache_v)``, each (B,S,Hkv,hd). Writes the new K/V at
+        ``pos`` in place and attends to positions ``<= pos``."""
+        cache_k, cache_v = state
         b = x.shape[0]
         positions = torch.full((b, 1), pos, dtype=torch.long,
                                device=x.device)

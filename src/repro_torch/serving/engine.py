@@ -5,7 +5,10 @@ Fixed-size batch slots, prompts left-padded with token 0 to a common
 length (the pads are attended to, as in the reference), greedy argmax
 (the first index on ties, as ``jnp.argmax``), and an early stop once
 every request has emitted ``eos_id``. The cache is preallocated at
-``max_seq`` and updated in place by each decode step.
+``max_seq`` and updated in place by each decode step. It serves every
+decoder-only family (attention, RWKV, the Mamba hybrid); an
+encoder-decoder needs ``enc_input``, which ``generate`` does not take,
+as in the reference.
 """
 from __future__ import annotations
 

@@ -610,3 +610,98 @@ def test_lm_engine_on_card_equals_cpu(cuda_device, monkeypatch, arch,
             if gap[i, step] <= LM_ATOL:
                 break
             assert got[i].tokens[step] == want[i].tokens[step]
+
+
+# The training path and the RWKV, Mamba-hybrid and encoder-decoder
+# families: plain torch ops on the card against the same parameters on the
+# CPU, float32 with TF32 off.
+TRAIN_LR = 1e-3
+# the loss, and each gradient leaf's largest absolute difference over its
+# largest absolute value
+GRAD_LOSS_ATOL, GRAD_RTOL = 1e-5, 1e-4
+# Adam's first step is lr * g / (|g| + eps) (plus the decay): where the
+# two sides' gradients of an element agree to DECIDED (relative), the
+# steps agree to PARAM_ATOL; elsewhere (a near-cancelling sum at float32
+# noise) the element may move either way, by up to 2 lr.
+DECIDED, PARAM_ATOL = 1e-3, 1e-6
+
+
+def smoke_batch(cfg, device, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, size=(2, 13))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.encoder_layers:
+        batch["enc_input"] = rng.normal(size=(2, 5, cfg.d_model)) \
+            .astype(np.float32)
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-1b-a400m",
+                                  "rwkv6-7b", "jamba-1.5-large-398b",
+                                  "seamless-m4t-medium"])
+def test_train_step_on_card_equals_cpu(cuda_device, monkeypatch, arch):
+    """One smoke-size grad step and train step per family on the card
+    against a copy of the model on the CPU."""
+    import copy
+
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.launch.steps import make_grad_step, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamW, constant_lr
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = reduced_for_smoke(get_arch(arch))
+    card = build_model(cfg, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(0))
+    cpu = copy.deepcopy(card).to("cpu")
+    models = {"card": card, "cpu": cpu}
+    batches = {"card": smoke_batch(cfg, "cuda"),
+               "cpu": smoke_batch(cfg, "cpu")}
+    grads, metrics, params = {}, {}, {}
+    opt = AdamW(learning_rate=constant_lr(TRAIN_LR))
+    for side, model in models.items():
+        p = dict(model.named_parameters())
+        grads[side], _ = make_grad_step(model)(p, batches[side])
+        p, _, metrics[side] = make_train_step(model, opt)(
+            p, opt.init(p), batches[side])
+        params[side] = p
+    assert abs(float(metrics["card"]["loss"])
+               - float(metrics["cpu"]["loss"])) <= GRAD_LOSS_ATOL
+    for name, want in grads["cpu"].items():
+        got = grads["card"][name].cpu()
+        assert torch.isfinite(got).all(), name
+        err = float((got - want).abs().max())
+        assert err <= GRAD_RTOL * float(want.abs().max()) + 1e-12, name
+        decided = (got - want).abs() <= DECIDED * want.abs()
+        diff = (params["card"][name].detach().cpu()
+                - params["cpu"][name].detach()).abs()
+        assert bool((diff[decided] <= PARAM_ATOL).all()), name
+        assert bool((diff <= 2 * TRAIN_LR + PARAM_ATOL).all()), name
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_cuda_tensors(cuda_device, tmp_path):
+    """An async checkpoint of a state tree on the card restores equal,
+    onto the card by default and onto the CPU when asked."""
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamW, constant_lr
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = {"w": torch.randn(64, 32, device="cuda", generator=gen),
+              "b": torch.randn(32, device="cuda", generator=gen)}
+    state = {"params": params,
+             "opt_state": AdamW(constant_lr(1e-3)).init(params)}
+    saver = ckpt.AsyncCheckpointer(str(tmp_path))
+    saver.save(3, state)
+    with torch.no_grad():
+        params["w"].add_(1.0)  # the snapshot was taken before this
+    saver.wait()
+    step, back = ckpt.restore(str(tmp_path), state)
+    assert step == 3 and back["params"]["w"].device.type == "cuda"
+    assert torch.equal(back["params"]["w"] + 1.0, params["w"])
+    assert torch.equal(back["params"]["b"], params["b"])
+    assert back["opt_state"].step.dtype == torch.int32
+    _, host = ckpt.restore(str(tmp_path), state, device="cpu")
+    assert host["params"]["b"].device.type == "cpu"
+    assert torch.equal(host["params"]["b"], params["b"].cpu())

@@ -44,8 +44,17 @@ bad = sorted(m for m in sys.modules
              or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+
+# The modules of the training slice, each of which the blocked import
+# above must reach.
+TRAINING_MODULES = {
+    "repro_torch.data.pipeline", "repro_torch.launch.steps",
+    "repro_torch.launch.train", "repro_torch.models.mamba",
+    "repro_torch.models.rwkv", "repro_torch.train.checkpoint",
+    "repro_torch.train.grad_compress", "repro_torch.train.loop",
+    "repro_torch.train.optimizer", "repro_torch.train.tree"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -54,7 +63,9 @@ def test_port_imports_with_jax_and_reference_blocked():
                          capture_output=True, text=True, timeout=300,
                          check=False)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20   # every module was imported
+    names = set(out.stdout.split())
+    assert len(names) >= 20                     # every module was imported
+    assert TRAINING_MODULES <= names
 
 
 def _forbidden_imports(path: Path):
@@ -135,3 +146,11 @@ def test_entry_points_default_to_cuda():
         serve.main(["--arch", "qwen2-1.5b", "--smoke"])
     assert ServingEngine(build_model(cfg, device="cpu"), max_batch=1,
                          max_seq=8).device.type == "cpu"
+    # the training path: every family's model, and the train CLI
+    from repro_torch.configs import all_archs
+    from repro_torch.launch import train
+    for arch in all_archs():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(reduced_for_smoke(get_arch(arch)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "rwkv6-7b", "--smoke", "--steps", "1"])
