@@ -14,6 +14,11 @@ printing its own lines:
    ``nvidia-smi --query-gpu=name,power.limit`` gives them;
 2. build: the CUDA kernels build from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) into ``build/repro_torch``;
+   then analysis: the port's static analyzer (``repro_torch.analysis``)
+   over the checkout's ``src/`` and ``benchmarks/`` must report no
+   finding, its inventory of CUDA entries (``cuda_entries``) must be
+   exactly the four kernel wrappers with their ``.cu`` sources, and
+   each entry's C symbol must resolve on the library that was built;
 3. kernels: each hand-written kernel against its plain PyTorch version
    on random inputs at the largest shape the main paths give it, exact
    equality, with the kernel's and the plain version's times and the
@@ -220,6 +225,56 @@ class SmokeFailure(RuntimeError):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# The .cu source of each kernel, by its name here.
+SOURCES = {"tpf_match": "src/repro_torch/kernels/csrc/tpf_match.cu",
+           "bindjoin_grouped": "src/repro_torch/kernels/csrc/bindjoin.cu",
+           "bindjoin_fused": "src/repro_torch/kernels/csrc/bindjoin.cu",
+           "bindjoin": "src/repro_torch/kernels/csrc/bindjoin.cu"}
+
+
+def kernel_wrappers(bj, tm):
+    return {"tpf_match": tm.tpf_match_cuda,
+            "bindjoin_grouped": bj.bindjoin_grouped_cuda,
+            "bindjoin_fused": bj.bindjoin_fused_cuda,
+            "bindjoin": bj.bindjoin_cuda}
+
+
+def check_analysis(build, wrappers, smi):
+    """The port's static analyzer over this checkout, held against the
+    kernels this script launches: no finding, the analyzer's CUDA
+    entries equal to ``wrappers`` (by function and module) and to
+    ``SOURCES`` (by .cu file), and every entry's C symbol present on the
+    library ``build.library`` loaded for its source."""
+    from repro_torch.analysis import cuda_entries, load_context, run_analysis
+    t0 = time.perf_counter()
+    ctx = load_context()
+    if ctx.root != ROOT:
+        raise SmokeFailure(f"analysis: root {ctx.root}, expected {ROOT}")
+    findings = run_analysis(ctx)
+    if findings:
+        raise SmokeFailure(f"analysis: {len(findings)} findings:\n"
+                           + "\n".join(f.format() for f in findings))
+    entries = cuda_entries(ctx)
+    got = {e.function: (e.module.rel, e.source) for e in entries}
+    want = {fn.__name__: ("src/" + fn.__module__.replace(".", "/") + ".py",
+                          SOURCES[name]) for name, fn in wrappers.items()}
+    if len(entries) != len(got) or got != want:
+        raise SmokeFailure(f"analysis: CUDA entries {got}, the wrappers "
+                           f"launched here {want}")
+    missing = [e.symbol for e in entries
+               if not hasattr(build.library(Path(e.source).stem), e.symbol)]
+    if missing:
+        raise SmokeFailure(f"analysis: C symbols not in their library: "
+                           f"{missing}")
+    seconds = time.perf_counter() - t0
+    log(f"analysis: {len(ctx.modules)} modules, 0 findings, "
+        f"{len(entries)} CUDA entries equal to the wrappers and their "
+        f"sources, every C symbol resolved; {seconds:.2f} s ({smi})")
+    return dict(modules=len(ctx.modules), findings=0, seconds=seconds,
+                entries={e.function: [e.module.rel, e.symbol, e.source]
+                         for e in entries})
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -2147,19 +2202,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    ends = {"build": time.perf_counter() - t_start}
+    wrappers = kernel_wrappers(bj, tm)
+    analysis = check_analysis(build, wrappers, smi)
+    ends["analysis"] = time.perf_counter() - t_start
+
     # The store is generated first: phase 3 times the ungrouped kernel
     # at the sharded store's full-stream shape.
-    ends = {"build": time.perf_counter() - t_start}
     data, generate_s = generate_data(watdiv)
     ends["data"] = time.perf_counter() - t_start
     kernels, single_window = check_kernels(
         torch, bj, tm, ops, SHARDS * -(-len(data.store) // SHARDS))
     ends["kernels"] = time.perf_counter() - t_start
-
-    wrappers = {"tpf_match": tm.tpf_match_cuda,
-                "bindjoin_grouped": bj.bindjoin_grouped_cuda,
-                "bindjoin_fused": bj.bindjoin_fused_cuda,
-                "bindjoin": bj.bindjoin_cuda}
 
     # launch geometries per main path, from the wrappers' tallies
     shapes_per_path = {p: {n: Counter() for n in wrappers}
@@ -2190,6 +2244,7 @@ def main() -> int:
     simulated = run_sim(torch, core, data, queries, counts, reset_counts)
     ends["sim"] = time.perf_counter() - t_start
     details["phase_end_s"] = ends
+    details["analysis"] = analysis
     details["sharded"] = sharded
     details["edge"] = edge
     details["sim"] = simulated
@@ -2242,10 +2297,6 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f}" for k, v in
                     sorted(excess.items(), key=lambda kv: -kv[1])))
 
-    sources = {"tpf_match": "src/repro_torch/kernels/csrc/tpf_match.cu",
-               "bindjoin_grouped": "src/repro_torch/kernels/csrc/bindjoin.cu",
-               "bindjoin_fused": "src/repro_torch/kernels/csrc/bindjoin.cu",
-               "bindjoin": "src/repro_torch/kernels/csrc/bindjoin.cu"}
     replaces = {"tpf_match": "src/repro/kernels/tpf_match.py:44",
                 "bindjoin_grouped": "src/repro/kernels/bindjoin.py:192",
                 "bindjoin_fused": "src/repro/kernels/bindjoin.py:305",
@@ -2260,7 +2311,7 @@ def main() -> int:
         top = max(paths, key=lambda p: paths[p]["launches"])
         r = paths[top]["geometries"][0]
         entries.append(dict(
-            name=name, route="cuda", source=sources[name],
+            name=name, route="cuda", source=SOURCES[name],
             replaces=replaces[name], launches=launches[name],
             max_abs_err=max([big["max_abs_err"]] + [
                 g["max_abs_err"] for p in paths.values()

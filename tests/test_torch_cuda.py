@@ -10,6 +10,8 @@ The file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed. Outputs are integers: equality is exact.
 """
 import importlib
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -705,3 +707,20 @@ def test_checkpoint_round_trip_of_cuda_tensors(cuda_device, tmp_path):
     _, host = ckpt.restore(str(tmp_path), state, device="cpu")
     assert host["params"]["b"].device.type == "cpu"
     assert torch.equal(host["params"]["b"], params["b"].cpu())
+
+
+@pytest.mark.cuda
+def test_analysis_inventory_matches_the_built_kernels(cuda_device):
+    """chip_smoke.py's analysis phase alone: the port's analyzer finds
+    nothing in the checkout, its CUDA entries are the four wrappers with
+    their sources, and each C symbol resolves on the built library."""
+    from repro_torch.kernels import build
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    tm = importlib.import_module("repro_torch.kernels.tpf_match")
+    out = smoke.check_analysis(build, smoke.kernel_wrappers(tbindjoin, tm),
+                               torch.cuda.get_device_name(0))
+    assert out["findings"] == 0 and len(out["entries"]) == 4

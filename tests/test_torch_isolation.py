@@ -56,6 +56,14 @@ TRAINING_MODULES = {
     "repro_torch.train.grad_compress", "repro_torch.train.loop",
     "repro_torch.train.optimizer", "repro_torch.train.tree"}
 
+# The static analyzer's 14 modules (host-only, pure ``ast``).
+ANALYSIS_MODULES = {"repro_torch.analysis"} | {
+    f"repro_torch.analysis.{name}" for name in (
+        "__main__", "callgraph", "engine", "findings", "static_eval",
+        "rules", "rules.accounting", "rules.async_safety",
+        "rules.cache_coherence", "rules.cuda_launch", "rules.dead_code",
+        "rules.kernel_launch", "rules.resilience")}
+
 
 def test_port_imports_with_jax_and_reference_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -66,6 +74,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     names = set(out.stdout.split())
     assert len(names) >= 20                     # every module was imported
     assert TRAINING_MODULES <= names
+    assert len(ANALYSIS_MODULES) == 14 and ANALYSIS_MODULES <= names
 
 
 def _forbidden_imports(path: Path):
