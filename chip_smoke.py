@@ -95,7 +95,20 @@ printing its own lines:
    cut to 2 layers), ``seamless-m4t-medium`` at full width (prefill with
    ``enc_input`` + decode against the forward, a train step, card vs
    CPU) and ``jamba-1.5-large-398b`` at ``reduced_for_smoke`` (card vs
-   CPU, a train step), within phase 9's limits.
+   CPU, a train step), within phase 9's limits;
+12. dryrun: the sharding layer and the dry-run launchers
+   (``repro_torch.launch.dryrun`` / ``engine_dryrun``) over PyTorch's
+   fake process group: (a) rank 0 of the production H100 meshes traced
+   on fake CUDA tensors (qwen2-1.5b on gpu32x8 and gpu2x32x8,
+   granite-moe-1b-a400m and jamba-1.5-large-398b at full width on
+   gpu32x8, each over its shapes, and both engine variants): per-device
+   GB and the roofline's compute, memory and collective seconds; (b) the
+   engine's distributed step as rank 0 of gpu32x8 for real on the card,
+   2^30 / 32 random triples: its local page and count must equal the
+   single-card step's and both kernels must launch, with ms and peak
+   memory beside the dry-run's; (c) qwen2-1.5b's train_4k and
+   decode_32k steps as rank 0 for real, peak memory within
+   MEM_RATIO_LIMITS of the dry-run's prediction.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -2156,6 +2169,305 @@ def run_families(torch, smi):
     return out
 
 
+# -- phase 12: the sharding layer and the dry-run launchers --------------------
+
+# (a) The production dry-run's named cells: qwen2-1.5b on both H100
+# meshes, granite-moe-1b-a400m and jamba-1.5-large-398b at full width on
+# gpu32x8, each over its shapes; then both engine variants. jamba's 72
+# layers are sampled (one and two block periods, one and two
+# microbatches, extrapolated: its full train_4k trace takes 299 s on
+# the chip host), the others traced whole.
+DRYRUN_CELLS = (
+    [("qwen2-1.5b", s, mp, False) for mp in (False, True)
+     for s in ("train_4k", "prefill_32k", "decode_32k")]
+    + [("granite-moe-1b-a400m", s, False, False)
+       for s in ("train_4k", "prefill_32k", "decode_32k")]
+    + [("jamba-1.5-large-398b", s, False, True)
+       for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")])
+# (b) the engine's rank 0 on the card: term ids of its random triples
+# (subjects and objects below 2^20, 64 predicates; keys pack 21 bits
+# each), timed over ENGINE_ITERS calls (the median).
+ENGINE_TERMS, ENGINE_PREDICATES, ENGINE_ITERS = 1 << 20, 64, 10
+# (c) qwen2-1.5b's rank 0 run for real: its peak memory against the
+# dry-run's per-device bytes for the same cell. The caching allocator
+# rounds every block up (512 B, 2 MiB segments) and cuBLAS takes a
+# workspace from it, which the trace's exact storage sizes do not see:
+# the peak may be up to 25% above the prediction; 10% below it means
+# the trace counts storages the program never holds at once. A miss is
+# a finding, reported and failed, never widened.
+MEM_RATIO_LIMITS = (0.90, 1.25)
+RANK0_CELLS = ("train_4k", "decode_32k")
+
+
+def dryrun_table(torch, smi):
+    """Phase 12 (a): trace every named cell as rank 0 on fake CUDA
+    tensors (the chip host's CPU does the work), and both engine
+    variants; one line per cell."""
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.engine_dryrun import lower_variant
+    cells = {}
+    for arch, shape, multi_pod, sample in DRYRUN_CELLS:
+        rec = trace_cell(arch, shape, multi_pod, sample=sample)
+        r, m = rec["roofline"], rec["memory_analysis"]
+        log(f"dryrun {arch} {shape} {rec['mesh']}: per-device "
+            f"{r['memory_per_device_gb']:.3f} GB (arguments "
+            f"{m['argument_size_gb']:.3f}, temporaries "
+            f"{m['temp_size_gb']:.3f}), compute {r['compute_s']:.5f} s, "
+            f"memory {r['memory_s']:.5f} s, collective "
+            f"{r['collective_s']:.5f} s, dominant {r['dominant']}, "
+            f"grad_accum {rec['grad_accum']}, traced (layers, "
+            f"microbatches) {rec['traced']} in {rec['compile_s']:.1f} s"
+            f" | {smi}")
+        for op, kinds in rec["redistributed_ops"].items():
+            log(f"dryrun {arch} {shape} {rec['mesh']}: DTensor "
+                f"redistributed the operands of {op}: " + ", ".join(
+                    f"{k} {v / 1e9:.3f} GB" for k, v in kinds.items()))
+        rec.pop("top_ops")
+        cells[f"{arch}/{shape}/{rec['mesh']}"] = rec
+    for variant in ("baseline", "windowed"):
+        rec = lower_variant(variant)
+        r = rec["roofline"]
+        log(f"dryrun brtpf-engine {variant} {rec['mesh']}: per-device "
+            f"{r['memory_per_device_gb']:.3f} GB, compute "
+            f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, "
+            f"collective {r['collective_s']:.7f} s "
+            f"({r['coll_counts']}, {r['coll_bytes_per_chip']:.0f} bytes), "
+            f"dominant {r['dominant']} | {smi}")
+        rec.pop("top_ops")
+        cells[f"brtpf-engine/{variant}/{rec['mesh']}"] = rec
+    return cells
+
+
+def engine_inputs(torch, variant, n, gen):
+    """Rank 0's partition (2^30 / 32 random triples, SPO-sorted for the
+    windowed variant) and a request whose 64 attached mappings come from
+    its rows, so that both variants find matches."""
+    from repro_torch.kernels.ops import pattern_vec_from
+    from repro_torch.launch.engine_dryrun import MAX_MPR
+    dev = "cuda"
+    s = torch.randint(0, ENGINE_TERMS, (n,), generator=gen, device=dev)
+    p = torch.randint(0, ENGINE_PREDICATES, (n,), generator=gen,
+                      device=dev)
+    o = torch.randint(0, ENGINE_TERMS, (n,), generator=gen, device=dev)
+    keys = (s << 42) | (p << 21) | o
+    if variant == "windowed":
+        keys, order = torch.sort(keys)
+        s, p, o = s[order], p[order], o[order]
+    rows = torch.stack([s, p, o], dim=1).to(torch.int32)[None]
+    valid = torch.ones((1, n), dtype=torch.bool, device=dev)
+    pick = torch.randint(0, n, (MAX_MPR,), generator=gen, device=dev)
+    pat_valid = torch.ones((MAX_MPR,), dtype=torch.int32, device=dev)
+    if variant == "baseline":
+        # (?s, P, ?o) with ?s bound to 64 subjects of rows of predicate P
+        pred = int(p[pick[0]])
+        subj = s[p == pred][:MAX_MPR]
+        pats = torch.full((MAX_MPR, 3), -1, dtype=torch.int32, device=dev)
+        pats[:len(subj), 0] = subj.to(torch.int32)
+        pats[:, 1] = pred
+        pat_valid[len(subj):] = 0
+        base = torch.as_tensor(pattern_vec_from((-1, pred, -1))).to(dev)
+        return (rows, valid, pats, pat_valid, base)
+    # (X, ?p, ?o) with ?p bound to X's predicates: a window of its range
+    subj = int(s[pick[0]])
+    preds = torch.unique(p[s == subj])[:MAX_MPR]
+    pats = torch.full((MAX_MPR, 3), -1, dtype=torch.int32, device=dev)
+    pats[:, 0] = subj
+    pats[:len(preds), 1] = preds.to(torch.int32)
+    pat_valid[len(preds):] = 0
+    base = torch.as_tensor(pattern_vec_from((subj, -1, -1))).to(dev)
+    return (rows, valid, keys[None], pats, pat_valid, base, subj << 42,
+            (subj << 42) | ((1 << 42) - 1), 0)
+
+
+def engine_rank0(torch, smi, wrappers, cells):
+    """Phase 12 (b): the engine's distributed step as rank 0 of gpu32x8,
+    for real on the card over the fake group: each variant's local page
+    and count must equal the single-card step's on the same rows, and
+    both kernels must launch. Returns the per-variant numbers and the
+    kernels' launches and geometries on this path."""
+    from repro_torch.core.federation import FederatedStore, distributed_step
+    from repro_torch.launch.engine_dryrun import (CAPACITY, TOTAL_TRIPLES,
+                                                  WINDOW)
+    from repro_torch.launch.mesh import PRODUCTION, fake_mesh
+    gen = torch.Generator("cuda").manual_seed(0)
+    n = TOTAL_TRIPLES // PRODUCTION[False][0][0]
+    out, launches = {}, Counter()
+    shapes = {name: Counter() for name in wrappers}
+    single = FederatedStore(shards=1, device=torch.device("cuda"),
+                            triples=None, valid=None, keys=None, shard_n=n)
+    with fake_mesh(*PRODUCTION[False], device_type="cuda") as mesh:
+        for variant in ("baseline", "windowed"):
+            args = engine_inputs(torch, variant, n, gen)
+            if variant == "baseline":
+                step = distributed_step(mesh, CAPACITY)
+                want = single.lowerable(CAPACITY)(*args)
+            else:
+                step = distributed_step(mesh, CAPACITY, window=WINDOW,
+                                        shard_n=n, wild_cols=(1, 2))
+                want = single.lowerable_windowed(
+                    CAPACITY, WINDOW, wild_cols=(1, 2))(*args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in wrappers.values():
+                fn.launches = 0
+                fn.shapes.clear()
+            local = step.local(*args)
+            gathered = step.gather(*local)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            for name, fn in wrappers.items():
+                launches[name] += fn.launches
+                shapes[name].update(fn.shapes)
+            same = all(torch.equal(a.to(b.dtype), b)
+                       for a, b in zip(local, want, strict=True))
+            count = int(local[1].sum())
+            ms = sorted(time_ms(torch, lambda: step(*args), 1)
+                        for _ in range(ENGINE_ITERS))[ENGINE_ITERS // 2]
+            rec = cells[f"brtpf-engine/{variant}/gpu32x8"]["roofline"]
+            bound = (rec["memory_s"] + rec["compute_s"]) * 1e3
+            out[variant] = dict(
+                rows=n, matches=count, equal=same, ms=ms,
+                dryrun_ms=bound, peak_gb=peak / 1e9,
+                dryrun_gb=rec["memory_per_device_gb"],
+                gathered=[list(g.shape) for g in gathered])
+            log(f"engine rank 0 {variant}: {n} rows, {count} matches, "
+                f"local page and count equal to the single-card step: "
+                f"{same}, {ms:.3f} ms (median of {ENGINE_ITERS}) against "
+                f"the dry-run's memory + compute {bound:.3f} ms, peak "
+                f"{peak / 1e9:.3f} GB against its {rec['memory_per_device_gb']:.3f}"
+                f" GB per device | {smi}")
+            if not same or count == 0:
+                raise SmokeFailure(f"engine rank 0 {variant}: local page "
+                                   f"and count differ from the single-card"
+                                   f" step or found nothing ({count})")
+            del args, local, gathered, want
+            torch.cuda.empty_cache()
+    for name in ("bindjoin", "tpf_match"):
+        if not launches[name]:
+            raise SmokeFailure(f"{name} never launched on the engine's "
+                               f"rank-0 path: {dict(launches)}")
+    log(f"engine rank 0: CUDA launches {dict(launches)}")
+    return out, dict(launches), shapes
+
+
+def fill_rank0(torch, tree, gen, vocab):
+    """Rank 0's shards of a step's arguments, from a seed: token ids
+    uniform in the vocabulary, parameters normal(0, 0.02), everything
+    else (moments, caches, the step counter) zero."""
+    seen = set()
+    for t in torch.utils._pytree.tree_flatten(tree)[0]:
+        if not isinstance(t, torch.Tensor):
+            continue
+        local = getattr(t, "_local_tensor", t)
+        if id(local) in seen:
+            continue
+        seen.add(id(local))
+        with torch.no_grad():
+            if local.dim() == 0:
+                local.zero_()
+            elif not local.is_floating_point():
+                local.random_(0, vocab, generator=gen)
+            elif isinstance(t, torch.nn.Parameter):
+                local.normal_(0.0, 0.02, generator=gen)
+            else:
+                local.zero_()
+
+
+def qwen_rank0(torch, smi, cells):
+    """Phase 12 (c): qwen2-1.5b's train_4k and decode_32k steps as rank 0
+    of gpu32x8, run for real on the card over the fake group (local bf16
+    shards from a seed; collectives return unreduced, so no value is
+    checked): ms and peak memory against the dry-run's prediction."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.dryrun import build_step, cell_config
+    from repro_torch.launch.mesh import PRODUCTION, fake_mesh
+    from repro_torch.sharding.rules import default_rules, use_rules
+    out = {}
+    for shape_name in RANK0_CELLS:
+        cfg, shape = cell_config("qwen2-1.5b", shape_name, False)
+        rules = default_rules()
+        rec = cells[f"qwen2-1.5b/{shape_name}/gpu32x8"]
+        with fake_mesh(*PRODUCTION[False], device_type="cuda") as mesh:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            gen = torch.Generator("cuda").manual_seed(0)
+            model, step, args, _ = build_step(cfg, shape, mesh, rules,
+                                              shape.kind)
+            fill_rank0(torch, args, gen, cfg.vocab_size)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            with use_rules(mesh, rules), implicit_replication():
+                start.record()
+                result = step(*args)
+                end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ms = start.elapsed_time(end)
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            del model, step, args, result
+        want = rec["roofline"]["memory_per_device_gb"]
+        ratio = peak / want
+        out[shape_name] = dict(ms=ms, wall_s=wall, peak_gb=peak,
+                               dryrun_gb=want, ratio=ratio,
+                               limits=MEM_RATIO_LIMITS)
+        log(f"qwen2-1.5b rank 0 {shape_name} on the card: {ms:.1f} ms "
+            f"(host {wall:.2f} s), peak {peak:.3f} GB against the "
+            f"dry-run's {want:.3f} GB per device (ratio {ratio:.3f}, "
+            f"limits {MEM_RATIO_LIMITS[0]}-{MEM_RATIO_LIMITS[1]}); the "
+            f"dry-run's memory + compute "
+            f"{(rec['roofline']['memory_s'] + rec['roofline']['compute_s']) * 1e3:.1f}"
+            f" ms | {smi}")
+        torch.cuda.empty_cache()
+        if not MEM_RATIO_LIMITS[0] <= ratio <= MEM_RATIO_LIMITS[1]:
+            raise SmokeFailure(f"qwen2-1.5b rank 0 {shape_name}: peak "
+                               f"{peak:.3f} GB is {ratio:.3f} x the "
+                               f"dry-run's {want:.3f} GB")
+    return out
+
+
+def engine_path_geometries(torch, bj, tm, ops, shapes):
+    """Each kernel against its plain version at the geometry the engine's
+    rank-0 path launched it at, in phase 6's form."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for name, tally in shapes.items():
+        total = sum(tally.values())
+        if not total:
+            continue
+        geoms, excess = [], 0.0
+        for shape, n in tally.most_common():
+            r = measure(torch, bj, tm, ops, gen, name, shape)
+            geoms.append(dict(r, launches=n))
+            excess += n * (r["ms"] - r["bound_ms"])
+        out[name] = dict(launches=total, covered=1.0, excess_ms=excess,
+                         geometries=geoms)
+        log(f"path engine rank 0: {name} {total} launches at "
+            f"{[list(g['shape']) for g in geoms]}, launches x (ms - bound) "
+            f"{excess:.1f} ms")
+    return out
+
+
+def run_dryrun(torch, smi, bj, tm, ops, wrappers):
+    """Phase 12: (a) the production dry-run table, (b) the engine's rank
+    0 for real, (c) qwen2-1.5b's rank 0 for real."""
+    t0 = time.perf_counter()
+    cells = dryrun_table(torch, smi)
+    t_table = time.perf_counter() - t0
+    log(f"dryrun: {len(cells)} cells traced in {t_table:.1f} s")
+    engine, launches, shapes = engine_rank0(torch, smi, wrappers, cells)
+    geometries = engine_path_geometries(torch, bj, tm, ops, shapes)
+    rank0 = qwen_rank0(torch, smi, cells)
+    res = dict(cells=cells, table_s=t_table, engine=engine,
+               launches=launches, qwen_rank0=rank0,
+               seconds=time.perf_counter() - t0)
+    log(f"dryrun: phase took {res['seconds']:.1f} s")
+    return res, geometries
+
+
 # Which kernels each counted path must launch (the grouped paths run
 # tpf_match's test in the grouped kernel's prologue: no tpf_match launch).
 PATH_KERNELS = {
@@ -2274,7 +2586,6 @@ def main() -> int:
         log(f"{path}: CUDA launches per LaunchRecord "
             + ", ".join(f"{k} {per_path[path][k] / max(n, 1):.4f}"
                         for k in wrappers) + f" ({n} LaunchRecords)")
-    launches = {k: sum(c[k] for c in per_path.values()) for k in wrappers}
     details["launches_per_path"] = per_path
     log(f"kernels launched on the main paths: {per_path}")
 
@@ -2289,6 +2600,16 @@ def main() -> int:
     ends["train"] = time.perf_counter() - t_start
     details["families"] = run_families(torch, smi)
     ends["families"] = time.perf_counter() - t_start
+    details["dryrun"], engine_geoms = run_dryrun(torch, smi, bj, tm, ops,
+                                                 wrappers)
+    ends["dryrun"] = time.perf_counter() - t_start
+    per_path["engine rank 0"] = {k: details["dryrun"]["launches"].get(k, 0)
+                                 for k in wrappers}
+    for name, entry in engine_geoms.items():
+        at_paths[name]["engine rank 0"] = entry
+    launches = {k: sum(c[k] for c in per_path.values()) for k in wrappers}
+    log(f"kernels launched on the main paths, the engine's rank 0 "
+        f"included: {launches}")
     log("phases end at (s): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in ends.items()))
     excess = {k: sum(p["excess_ms"] for p in at_paths[k].values())

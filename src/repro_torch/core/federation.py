@@ -686,6 +686,69 @@ class FederatedStore:
         return data
 
 
+class ShardStep:
+    """One rank's request step over a device mesh: the counterpart of
+    the reference's ``shard_map`` steps (``FederatedStore.lowerable`` /
+    ``lowerable_windowed``).
+
+    ``local(...)`` runs the kernels on this rank's own partition, given
+    as a one-shard store (``[1, shard_n, 3]`` rows, ``[1, shard_n]``
+    valid flags and keys), exactly as the single-device logical-shard
+    steps do; ``gather(*outputs)`` all-gathers them over the mesh's
+    ``axis`` with functional collectives (the response wire transfer),
+    in the reference's wire dtypes: int32 pages and range lengths, int64
+    counts. Calling the step does both."""
+
+    def __init__(self, mesh, axis: str, local) -> None:
+        self.mesh = mesh
+        self.axis = axis
+        self.local = local
+
+    def gather(self, *outputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        from torch.distributed import _functional_collectives as funcol
+        gather = getattr(funcol, "all_gather_single",
+                         funcol.all_gather_tensor)
+        group = self.mesh.get_group(self.axis)
+        return tuple(funcol.wait_tensor(gather(x, 0, group))
+                     for x in outputs)
+
+    def __call__(self, *args) -> Tuple[torch.Tensor, ...]:
+        return self.gather(*self.local(*args))
+
+
+def distributed_step(mesh, capacity: int, *, axis: str = "data",
+                     window: Optional[int] = None, shard_n: int = 0,
+                     wild_cols: tuple = (0, 1, 2)) -> ShardStep:
+    """The rank's step of a store sharded over ``axis`` of ``mesh``.
+
+    Without ``window``: the full-shard stream, ``local(triples, valid,
+    pats, pat_valid, base_vec) -> (page [1, capacity, 3], count [1])``.
+    With ``window`` (clamped to ``shard_n``): the windowed step,
+    ``local(triples, valid, keys, pats, pat_valid, base_vec, lo_key,
+    hi_key, page_idx) -> (page [1, capacity, len(wild_cols)], count [1],
+    range length [1])``."""
+    if window is None:
+        def local(triples, valid, pats, pat_valid, base_vec):
+            page, count = _local_brtpf(triples, pats, pat_valid, base_vec,
+                                       valid, capacity)
+            return page, count.to(torch.int64)
+
+        return ShardStep(mesh, axis, local)
+    window = max(1, min(window, shard_n))
+
+    def local_windowed(triples, valid, keys, pats, pat_valid, base_vec,
+                       lo_key, hi_key, page_idx):
+        start, end = _search(keys, lo_key, hi_key)
+        win, win_valid, in_span = _window_slice(
+            triples, valid, start, end, page_idx, window)
+        page, count = _local_brtpf(win, pats, pat_valid, base_vec,
+                                   win_valid & in_span, capacity)
+        return (page[..., list(wild_cols)], count.to(torch.int64),
+                (end - start).to(torch.int32))
+
+    return ShardStep(mesh, axis, local_windowed)
+
+
 def _window_slice(cand, cand_valid, start, end, pi: int, window: int):
     """Slice window ``pi`` of every shard's local range [start, end).
 

@@ -9,8 +9,10 @@ caller's rows are the reference's). The selectors call the windowed
 kernels (``bindjoin_grouped_cuda``, ``bindjoin_fused_cuda``) directly,
 with the host-side slot tables of ``pack_slots``. Dispatch follows the
 tensor's device: a CUDA tensor gets the hand-written kernel, a CPU
-tensor its plain PyTorch version. ``compact_mask`` was plain ``jnp`` in
-the reference and stays plain torch here.
+tensor its plain PyTorch version. ``bindjoin`` and ``tpf_match`` reach
+their wrappers through registered ops (``torch.ops.repro_torch``), whose
+fake versions let a trace on fake tensors through. ``compact_mask`` was
+plain ``jnp`` in the reference and stays plain torch here.
 """
 from __future__ import annotations
 
@@ -47,6 +49,41 @@ def _pad_to(x: torch.Tensor, mult: int, fill: int) -> torch.Tensor:
                                     device=x.device)])
 
 
+# The CUDA routes of ``bindjoin`` and ``tpf_match`` as registered ops:
+# their implementation is the wrapper (which launches the kernel on a
+# CUDA tensor, counting the launch, and runs the plain version on a CPU
+# tensor); their fake versions give the output shapes, so that a trace
+# on fake tensors (``launch.dryrun``, ``launch.engine_dryrun``) passes
+# through the kernels, which read ``data_ptr()``.
+
+@torch.library.custom_op("repro_torch::bindjoin", mutates_args=())
+def _bindjoin_op(cand_s: torch.Tensor, cand_p: torch.Tensor,
+                 cand_o: torch.Tensor, pat_s: torch.Tensor,
+                 pat_p: torch.Tensor, pat_o: torch.Tensor,
+                 pat_valid: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return bindjoin_cuda(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o,
+                         pat_valid)
+
+
+@_bindjoin_op.register_fake
+def _(cand_s, cand_p, cand_o, pat_s, pat_p, pat_o, pat_valid):
+    t = cand_s.shape[0]
+    return (cand_s.new_empty((t,), dtype=torch.int32),
+            cand_s.new_empty((t,), dtype=torch.int32))
+
+
+@torch.library.custom_op("repro_torch::tpf_match", mutates_args=())
+def _tpf_match_op(cand: torch.Tensor,
+                  pattern_vec: torch.Tensor) -> torch.Tensor:
+    return tpf_match_cuda(cand, pattern_vec)
+
+
+@_tpf_match_op.register_fake
+def _(cand, pattern_vec):
+    return cand.new_empty((cand.shape[0],), dtype=torch.uint8)
+
+
 def bindjoin(cand: torch.Tensor, patterns: torch.Tensor,
              pat_valid: torch.Tensor, *, bt: int = DEFAULT_BT,
              bm: int = DEFAULT_BM) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,7 +102,7 @@ def bindjoin(cand: torch.Tensor, patterns: torch.Tensor,
     cs, cp, co = (_pad_to(cand[:, i], bt, 0) for i in range(3))
     ps, pp, po = (_pad_to(patterns[:, i], bm, 0) for i in range(3))
     pv = _pad_to(pat_valid.to(torch.int32), bm, 0)
-    keep, idx = bindjoin_cuda(cs, cp, co, ps, pp, po, pv)
+    keep, idx = _bindjoin_op(cs, cp, co, ps, pp, po, pv)
     return keep[:t].bool(), idx[:t]
 
 
@@ -198,8 +235,8 @@ def tpf_match(cand: torch.Tensor, pattern_vec: torch.Tensor) -> torch.Tensor:
         = [s, p, o, eq_sp, eq_so, eq_po, 0, 0], components < 0 wild.
     Returns: bool [T] (the kernel's uint8 mask, viewed as bool).
     """
-    mask = tpf_match_cuda(cand.to(torch.int32).contiguous(),
-                          pattern_vec.to(torch.int32).contiguous())
+    mask = _tpf_match_op(cand.to(torch.int32).contiguous(),
+                         pattern_vec.to(torch.int32).contiguous())
     return mask.view(torch.bool)
 
 

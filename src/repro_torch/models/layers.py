@@ -23,9 +23,12 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.nn import functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding.rules import constrain, local_inputs
 
 # Default attention q-chunk (queries per step for long sequences).
 ATTN_CHUNK = 1024
@@ -117,12 +120,47 @@ class Embeddings(nn.Module):
                                    dtype=dtype, device=device)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.tok, DTensor):
+            return _sharded_lookup(self.tok, tokens)
         return self.tok[tokens]
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         if self.tied:
             return x @ self.tok.t()
         return x @ self.out
+
+
+def _sharded_lookup(tok: DTensor, tokens: torch.Tensor) -> DTensor:
+    """Vocab-parallel lookup: each rank gathers the rows of its own
+    vocabulary shard (zeros for tokens outside it), a partial sum over
+    the model axis that the caller's constraint reduces. Rows of every
+    token on this rank's batch shard; the table's features whole."""
+    mesh = tok.device_mesh
+    mi = mesh.mesh_dim_names.index("model")
+    vocab_sharded = tok.placements[mi].is_shard(0)
+    t_pl = [Replicate()] * mesh.ndim
+    t_pl[mi] = Shard(0) if vocab_sharded else Replicate()
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    i_pl = [p if p.is_shard(0) and i != mi else Replicate()
+            for i, p in enumerate(tokens.placements)]
+    out_pl = list(i_pl)
+    out_pl[mi] = Partial() if vocab_sharded else Replicate()
+    t_grad = [Partial() if i != mi else p for i, p in enumerate(t_pl)]
+
+    def lookup(tokens, table):
+        rows = table.shape[0]
+        lo = mesh.get_local_rank("model") * rows if vocab_sharded else 0
+        idx = tokens.long() - lo
+        inside = (idx >= 0) & (idx < rows)
+        out = table[idx.clamp(0, rows - 1)]
+        return out * inside[..., None].to(out.dtype)
+
+    return local_map(local_inputs(lookup), out_placements=out_pl,
+                     in_placements=(i_pl, t_pl),
+                     in_grad_placements=(i_pl, t_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(tokens, tok)
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +218,68 @@ def softmax(scores: torch.Tensor) -> torch.Tensor:
     return F.softmax(scores.float(), dim=-1).to(scores.dtype)
 
 
+def split_heads(x: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """(B, S, heads * hd) -> (B, S, heads, hd). Under a mesh, features
+    sharded over more ranks than divide ``heads`` (12 heads on an 8-way
+    model axis) are gathered first: a head cannot be split."""
+    if isinstance(x, DTensor):
+        ranks = 1
+        for i, p in enumerate(x.placements):
+            if p.is_shard(2):
+                ranks *= x.device_mesh.size(i)
+        if heads % ranks:
+            x = constrain(x, "batch", "seq", None)
+    return x.reshape(*x.shape[:2], heads, hd)
+
+
+def _heads_sharded(x: torch.Tensor) -> bool:
+    return any(p.is_shard(2) for p in x.placements)
+
+
+def kv_like_queries(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_kv_heads: int):
+    """Under a mesh, where the query heads are sharded and the KV heads
+    cannot be (fewer of them than the model axis), each query head gets
+    its own copy of its KV head, sharded as the queries are (Megatron's
+    replicated KV heads): every rank then attends with its own query
+    heads. Elsewhere ``(k, v, num_kv_heads)`` as they are."""
+    if not isinstance(q, DTensor) or not _heads_sharded(q) \
+            or _heads_sharded(k):
+        return k, v, num_kv_heads
+    hq = q.shape[2]
+    g = hq // num_kv_heads
+
+    def spread(x):
+        b, s, _, hd = x.shape
+        x = x[:, :, :, None].expand(b, s, num_kv_heads, g, hd)
+        return constrain(x.reshape(b, s, hq, hd), "batch", None,
+                         "act_heads", None)
+
+    return spread(k), spread(v), hq
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           probs_fn) -> torch.Tensor:
+    """``gqa_out(probs_fn(gqa_scores(q, k)), v)`` -> (B,Sq,Hq*hd), the
+    KV heads those of ``k``.
+
+    On ``DTensor``s the attention of a batch row and head never needs
+    another's, so it runs through ``local_map`` on each rank's shards
+    (k and v placed as q): DTensor's own einsum strategy would fold the
+    data-sharded batch and the model-sharded heads into one bmm
+    dimension, which it can only express as a strided shard."""
+    def core(q, k, v):
+        return gqa_out(probs_fn(gqa_scores(q, k, k.shape[2])), v)
+
+    if not isinstance(q, DTensor):
+        return core(q, k, v)
+    pl = tuple(q.placements)
+    return local_map(local_inputs(core), out_placements=list(pl),
+                     in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 class Attention(nn.Module):
     """Self-attention with grouped KV heads and an optional QKV bias
     (``wq [d, Hq*hd]``, ``wk``/``wv [d, Hkv*hd]``, ``wo [Hq*hd, d]``),
@@ -220,12 +320,15 @@ class Attention(nn.Module):
         q, k, v = x @ self.wq, kv @ self.wk, kv @ self.wv
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        return (q.reshape(*x.shape[:2], cfg.num_heads, hd),
-                k.reshape(*kv.shape[:2], cfg.num_kv_heads, hd),
-                v.reshape(*kv.shape[:2], cfg.num_kv_heads, hd))
+        return (split_heads(q, cfg.num_heads, hd),
+                split_heads(k, cfg.num_kv_heads, hd),
+                split_heads(v, cfg.num_kv_heads, hd))
 
     def project_qkv(self, x: torch.Tensor, positions: torch.Tensor):
         q, k, v = self._heads(x, x)
+        q = constrain(q, "batch", "seq", "act_heads", None)
+        k = constrain(k, "batch", "seq", "act_kv_heads", None)
+        v = constrain(v, "batch", "seq", "act_kv_heads", None)
         if self.cfg.rope:
             hd = self.cfg.resolved_head_dim
             q = apply_rope(q, positions, hd)
@@ -247,20 +350,19 @@ class Attention(nn.Module):
         loops over query chunks, so the live score buffer is
         (chunk x S) instead of (S x S)."""
         b, s, _ = x.shape
-        kv_heads = self.cfg.num_kv_heads
         q, k, v = self.project_qkv(x, positions)
+        ka, va, _ = kv_like_queries(q, k, v, self.cfg.num_kv_heads)
         pos = positions[0]
         chunk = ATTN_CHUNK
         if s <= ATTN_CHUNK_THRESHOLD or s % chunk != 0:
-            out = gqa_out(self._probs(gqa_scores(q, k, kv_heads), pos, pos),
-                          v)
+            out = attend(q, ka, va, lambda sc: self._probs(sc, pos, pos))
         else:
             outs = []
             for lo in range(0, s, chunk):
-                probs = self._probs(
-                    gqa_scores(q[:, lo:lo + chunk], k, kv_heads),
-                    pos[lo:lo + chunk], pos)
-                outs.append(gqa_out(probs, v))
+                q_pos = pos[lo:lo + chunk]
+                outs.append(attend(
+                    q[:, lo:lo + chunk], ka, va,
+                    lambda sc, q_pos=q_pos: self._probs(sc, q_pos, pos)))
             out = torch.cat(outs, dim=1)
         return out @ self.wo, (k, v)
 
@@ -268,8 +370,7 @@ class Attention(nn.Module):
         """Encoder-decoder cross-attention: queries from x (B,Sq,d), keys
         and values from enc_out (B,Sk,d). No rotation, no mask."""
         q, k, v = self._heads(x, enc_out.to(x.dtype))
-        probs = softmax(gqa_scores(q, k, self.cfg.num_kv_heads))
-        return gqa_out(probs, v) @ self.wo
+        return attend(q, k, v, softmax) @ self.wo
 
     def decode(self, x: torch.Tensor, state, pos: int) -> torch.Tensor:
         """One-token decode: x (B,1,d); ``state`` this layer's
@@ -283,10 +384,11 @@ class Attention(nn.Module):
         cache_k[:, pos] = k[:, 0]
         cache_v[:, pos] = v[:, 0]
         s = cache_k.shape[1]
-        scores = gqa_scores(q, cache_k, self.cfg.num_kv_heads)
+        ka, va, _ = kv_like_queries(q, cache_k, cache_v,
+                                    self.cfg.num_kv_heads)
         mask = torch.arange(s, device=x.device) <= pos
-        probs = masked_softmax(scores, mask)
-        return gqa_out(probs, cache_v) @ self.wo
+        return attend(q, ka, va,
+                      lambda sc: masked_softmax(sc, mask)) @ self.wo
 
 
 # ---------------------------------------------------------------------------

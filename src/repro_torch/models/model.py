@@ -17,10 +17,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
 from ..configs.base import ATTN, ArchConfig
 from ..kernels.ops import resolve_device
+from ..sharding.rules import constrain
 from .layers import Attention, Embeddings, empty_param, init_parameters, \
     rms_norm
 from .transformer import Block, Cache, Stack, remat
@@ -118,7 +120,7 @@ class Model(nn.Module):
                enc_input: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B,S) -> (final hidden states (B,S,d), moe_aux)."""
-        x = self.embed(tokens)
+        x = constrain(self.embed(tokens), "batch", "seq", "act_embed")
         positions = self._positions(tokens)
         if self.cfg.encoder_layers:
             enc_out = self._enc_out(enc_input)
@@ -138,7 +140,8 @@ class Model(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B,S) -> (logits (B,S,V), moe_aux)."""
         x, aux = self.hidden(tokens, enc_input)
-        return self.embed.unembed(x), aux
+        logits = constrain(self.embed.unembed(x), "batch", "seq", "vocab")
+        return logits, aux
 
     # -- loss ------------------------------------------------------------------
 
@@ -161,10 +164,18 @@ class Model(nn.Module):
         chunk = self.CE_CHUNK if s % self.CE_CHUNK == 0 else s
 
         def ce(lo):
-            logits = self.embed.unembed(x[:, lo:lo + chunk])
+            logits = constrain(self.embed.unembed(x[:, lo:lo + chunk]),
+                               "batch", "seq", "vocab")
             logp = F.log_softmax(logits.float(), dim=-1)
             tgt = targets[:, lo:lo + chunk, None].long()
-            nll = -torch.gather(logp, -1, tgt)[..., 0]
+            if isinstance(logp, DTensor):
+                # a gather's backward scatters into zeros that DTensor
+                # makes whole on every rank (the global batch's logits);
+                # a one-hot product keeps the rows sharded
+                hit = tgt == torch.arange(logp.shape[-1], device=x.device)
+                nll = -(logp * hit).sum(-1)
+            else:
+                nll = -torch.gather(logp, -1, tgt)[..., 0]
             return (nll * mask[:, lo:lo + chunk]).sum()
 
         total = ce(0)
@@ -191,7 +202,7 @@ class Model(nn.Module):
         would dwarf every other buffer."""
         b, s = tokens.shape
         cache = self.init_cache(b, max_seq or s)
-        x = self.embed(tokens)
+        x = constrain(self.embed(tokens), "batch", "seq", "act_embed")
         positions = self._positions(tokens)
         if self.cfg.encoder_layers:
             enc_out = self._enc_out(enc_input)
@@ -210,7 +221,7 @@ class Model(nn.Module):
         """token (B,1), pos the position it takes -> (logits (B,1,V),
         cache), the cache updated in place. An encoder-decoder takes the
         encoder's output ``enc_out`` (``encode(enc_input)``)."""
-        x = self.embed(token)
+        x = constrain(self.embed(token), "batch", None, "act_embed")
         if self.cfg.encoder_layers:
             if enc_out is None:
                 raise ValueError(f"{self.cfg.name}: decoding an "

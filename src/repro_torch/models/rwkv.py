@@ -23,9 +23,11 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding.rules import constrain, shard_local
 from .layers import empty_param
 
 LORA_DIM = 64
@@ -157,13 +159,21 @@ def _mix_inputs(mu: torch.Tensor, x: torch.Tensor, xx: torch.Tensor):
     return [x + (xx - x) * mu[i] for i in range(mu.shape[0])]
 
 
-def _shift(x: torch.Tensor) -> torch.Tensor:
-    """The previous token's input at each position (zeros at the first)."""
+def _shift_local(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    """The previous token's input at each position (zeros at the first);
+    per row and channel on a ``DTensor``."""
+    if isinstance(x, DTensor):
+        return shard_local(_shift_local, x, (0, 2), [(0, 2)], [(0, 2)])(x)
+    return _shift_local(x)
+
+
 def _decay(tm: TimeMix, w_in: torch.Tensor) -> torch.Tensor:
-    lora = (torch.tanh(w_in) @ tm.w_lora_a) @ tm.w_lora_b
+    low = constrain(torch.tanh(w_in) @ tm.w_lora_a, "batch", "seq", None)
+    lora = low @ tm.w_lora_b
     return -torch.exp(torch.clamp(tm.w0.float() + lora.float(), -8.0, 4.0))
 
 
@@ -187,7 +197,12 @@ def time_mix(tm: TimeMix, x: torch.Tensor, cfg: ArchConfig):
     g = F.silu(g_in @ tm.w_g)
     logw = _decay(tm, w_in).reshape(b, s, h, hd)
     u = tm.u.float().reshape(h, hd)
-    o, state = wkv_chunked(r, k, v, logw, u, cfg.chunk_size)
+    if isinstance(r, DTensor):              # per row and head
+        o, state = shard_local(
+            lambda *a: wkv_chunked(*a, cfg.chunk_size), r, (0, 2),
+            [(0, 2)] * 4 + [(None, 0)], [(0, 2), (0, 1)])(r, k, v, logw, u)
+    else:
+        o, state = wkv_chunked(r, k, v, logw, u, cfg.chunk_size)
     o = _group_norm(o, 1.0, cfg.norm_eps).reshape(b, s, d)
     o = o * tm.ln_scale.to(o.dtype) * g
     return o @ tm.w_o, (x[:, -1:], state)
@@ -207,7 +222,12 @@ def time_mix_decode(tm: TimeMix, x: torch.Tensor, cfg: ArchConfig,
     g = F.silu(g_in @ tm.w_g).reshape(b, h, hd)
     logw = _decay(tm, w_in).reshape(b, h, hd)
     u = tm.u.float().reshape(h, hd)
-    o, new_state = wkv_step(r, k, v, logw, u, wkv_state)
+    if isinstance(r, DTensor):              # per row and head
+        o, new_state = shard_local(
+            wkv_step, r, (0, 1), [(0, 1)] * 4 + [(None, 0), (0, 1)],
+            [(0, 1), (0, 1)])(r, k, v, logw, u, wkv_state)
+    else:
+        o, new_state = wkv_step(r, k, v, logw, u, wkv_state)
     o = _group_norm(o, 1.0, cfg.norm_eps)
     o = o * tm.ln_scale.to(o.dtype).reshape(h, hd) * g
     return o.reshape(b, 1, d) @ tm.w_o, x, new_state

@@ -6,7 +6,9 @@ The reference stacks each block-period position's parameters along a
 leading ``num_periods`` axis and scans over periods; here the stack is an
 ``nn.ModuleList`` of layers in the reference's layer order (layer ``i``
 is period ``i // plen``, position ``i % plen``) and a loop over it. Its
-sharding constraints are no-ops on one device and do not appear here.
+sharding constraints (``sharding.rules.constrain`` after each residual
+add) redistribute a ``DTensor`` under active rules and are no-ops
+otherwise.
 ``remat`` wraps each block period in ``torch.utils.checkpoint`` as the
 reference wraps its scan body in ``jax.checkpoint``: ``"full"`` recomputes
 the period in the backward pass, ``"dots"`` saves the matmul outputs and
@@ -34,6 +36,8 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ATTN, MAMBA, RWKV, ArchConfig
+from ..sharding import rules
+from ..sharding.rules import constrain
 from .layers import FFN, Attention, empty_param, rms_norm
 from .mamba import Mamba
 from .moe import MoE
@@ -99,7 +103,7 @@ class Block(nn.Module):
         ``None`` without an MoE FFN. With ``cache`` (prefill) it also
         writes this layer's decode state into its slot."""
         h, state = self.mixer(rms_norm(self.norm1, x, self.eps), positions)
-        x = x + h
+        x = constrain(x + h, "batch", "seq", "act_embed")
         h = rms_norm(self.norm2, x, self.eps)
         if cache is not None:
             # attention fills the first S positions of its max_seq; every
@@ -110,8 +114,8 @@ class Block(nn.Module):
                 cache["shift_c"][self.slot] = h[:, -1:]
         if self.is_moe:
             h, aux = self.ffn(h)
-            return x + h, aux
-        return x + self.ffn(h), None
+            return constrain(x + h, "batch", "seq", "act_embed"), aux
+        return constrain(x + self.ffn(h), "batch", "seq", "act_embed"), None
 
     def decode(self, x: torch.Tensor, cache: Cache, pos: int
                ) -> torch.Tensor:
@@ -148,6 +152,20 @@ def state_shapes(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
                 "shift_c": ((batch, 1, d), dtype),
                 "wkv": ((batch, d // n, n, n), torch.float32)}
     raise ValueError(kind)
+
+
+# Each decode-cache tensor's logical axes, its leading dimension the
+# layers of its block kind (the reference's init_block_cache under
+# "layers").
+CACHE_AXES = {
+    ATTN: {"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+           "v": ("layers", "batch", "kv_seq", "kv_heads", None)},
+    MAMBA: {"conv": ("layers", "batch", None, "ssm_inner"),
+            "ssm": ("layers", "batch", "ssm_inner", None)},
+    RWKV: {"shift_t": ("layers", "batch", None, "embed"),
+           "shift_c": ("layers", "batch", None, "embed"),
+           "wkv": ("layers", "batch", "heads", None, None)},
+}
 
 
 class Stack(nn.Module):
@@ -192,13 +210,15 @@ class Stack(nn.Module):
 
     def init_cache(self, batch: int, max_seq: int, dtype: torch.dtype,
                    device: torch.device) -> Cache:
-        """Zeroed decode state of every layer, stacked per kind."""
+        """Zeroed decode state of every layer, stacked per kind (under
+        active sharding rules, sharded by ``CACHE_AXES``)."""
         cache: Cache = {}
         for kind, count in self.kinds.items():
             for name, (shape, dt) in state_shapes(self.cfg, kind, batch,
                                                   max_seq, dtype).items():
-                cache[name] = torch.zeros((count,) + shape, dtype=dt,
-                                          device=device)
+                cache[name] = rules.zeros((count,) + shape,
+                                          *CACHE_AXES[kind][name],
+                                          dtype=dt, device=device)
         return cache
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,

@@ -724,3 +724,43 @@ def test_analysis_inventory_matches_the_built_kernels(cuda_device):
     out = smoke.check_analysis(build, smoke.kernel_wrappers(tbindjoin, tm),
                                torch.cuda.get_device_name(0))
     assert out["findings"] == 0 and len(out["entries"]) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,m", [(1, 64), (5000, 64), (1 << 20, 200)])
+def test_registered_kernel_ops_on_card_equal_plain(cuda_device, t, m):
+    """``ops.bindjoin`` / ``ops.tpf_match`` reach the kernels through the
+    registered ops (``torch.ops.repro_torch``): on the card they equal
+    the CPU's plain versions and count their launches; on fake tensors
+    the registered fake versions give the shapes and dtypes the kernels
+    return."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    rng = np.random.default_rng(t)
+    triples = torch.as_tensor(rand_triples(rng, t))
+    pats = torch.as_tensor(rand_patterns(rng, (m,)))
+    pv = torch.as_tensor((rng.random(m) < 0.5).astype(np.int32))
+    vec = torch.as_tensor(tops.pattern_vec_from((-1, 2, -1)))
+    bj0, tm0 = tbindjoin.bindjoin_cuda.launches, tpf_match_cuda.launches
+    got = (*tops.bindjoin(triples.to(cuda_device), pats.to(cuda_device),
+                          pv.to(cuda_device)),
+           tops.tpf_match(triples.to(cuda_device), vec.to(cuda_device)))
+    torch.cuda.synchronize()
+    want = (*tops.bindjoin(triples, pats, pv), tops.tpf_match(triples, vec))
+    for w, o in zip(want, got, strict=True):
+        assert torch.equal(w, o.cpu())
+    assert tbindjoin.bindjoin_cuda.launches == bj0 + 1
+    assert tpf_match_cuda.launches == tm0 + 1
+    # the raw registered ops: fake outputs as the real ones
+    cols = [triples[:, i].contiguous().to(cuda_device) for i in range(3)]
+    slots = [pats[:, i].contiguous().to(cuda_device) for i in range(3)]
+    real = torch.ops.repro_torch.bindjoin(*cols, *slots,
+                                          pv.to(cuda_device))
+    real_tm = torch.ops.repro_torch.tpf_match(
+        triples.to(cuda_device), vec.to(cuda_device))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = torch.ops.repro_torch.bindjoin(*cols, *slots,
+                                              pv.to(cuda_device))
+        fake_tm = torch.ops.repro_torch.tpf_match(
+            triples.to(cuda_device), vec.to(cuda_device))
+    for f, r in zip((*fake, fake_tm), (*real, real_tm), strict=True):
+        assert (f.shape, f.dtype, f.device) == (r.shape, r.dtype, r.device)

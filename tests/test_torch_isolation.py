@@ -65,6 +65,14 @@ ANALYSIS_MODULES = {"repro_torch.analysis"} | {
         "rules.kernel_launch", "rules.resilience")}
 
 
+# The sharding layer and the dry-run launchers.
+SHARDING_MODULES = {
+    "repro_torch.sharding", "repro_torch.sharding.rules",
+    "repro_torch.models.axes", "repro_torch.launch.mesh",
+    "repro_torch.launch.specs", "repro_torch.launch.roofline",
+    "repro_torch.launch.dryrun", "repro_torch.launch.engine_dryrun"}
+
+
 def test_port_imports_with_jax_and_reference_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], env=env,
@@ -75,6 +83,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert len(names) >= 20                     # every module was imported
     assert TRAINING_MODULES <= names
     assert len(ANALYSIS_MODULES) == 14 and ANALYSIS_MODULES <= names
+    assert SHARDING_MODULES <= names
 
 
 def _forbidden_imports(path: Path):
@@ -163,3 +172,15 @@ def test_entry_points_default_to_cuda():
             build_model(reduced_for_smoke(get_arch(arch)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "rwkv6-7b", "--smoke", "--steps", "1"])
+    # the dry-run launchers trace fake CUDA tensors unless asked for the
+    # CPU, and the fake process group does not outlive them
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.engine_dryrun import lower_variant
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trace_cell("qwen2-1.5b", "decode_32k", False, mini=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lower_variant("windowed")
+    assert trace_cell("qwen2-1.5b", "decode_32k", False, mini=True,
+                      device="cpu")["device"] == "cpu"
+    assert not dist.is_initialized()
