@@ -58,10 +58,17 @@ printing its own lines:
    The same plan with the bare transport and a 2 s client deadline
    (the A/B arm) must fail at least one query;
 8. sim: the trace-replay simulator on the card: the kernel profile from
-   ``calibrate_kernels``, ``collect_traces`` of the 8 queries on the
-   kernel backend, and ``live_replay`` by 4 clients through a 2 ms
+   ``calibrate_kernels``, then on the kernel backend and on the sharded
+   backend (SHARDS logical shards, as phase 5) ``collect_traces`` of the
+   8 queries under ``torch.profiler``: the model's charge for the traces
+   (``sim.kernel_charge``: launch overhead, stream, cells; also as the
+   JAX package charges the same records), whose summed CUDA launches
+   must equal the bind-join launches the profiler saw, and whose stream
+   plus cells over the kernels' device time must lie within
+   SIM_RATIO_LIMITS; and ``live_replay`` by 4 clients through a 2 ms
    batching window, whose launch count must agree with the model's
-   within 10%;
+   within 10% on the kernel backend (the sharded backend's agreement is
+   printed);
 6. path kernels (run after 7 and 8): each kernel against its plain
    version again, at the launch geometries each of phases 4, 5, 7 and 8
    gave it most (the wrappers' ``shapes`` tallies), with times and
@@ -180,6 +187,21 @@ MIN_SUCCESS_RATE = 0.999
 SIM_CLIENTS = 4
 SIM_WINDOW_S = 2e-3
 MAX_SIM_DISAGREEMENT = 0.10
+# Phase 8: the model's stream plus cells (sim.kernel_charge) for the
+# traces' kernel-path requests over the bind-join kernels' device time
+# while the traces were collected (torch.profiler). Kernel backend:
+# within 3x either way. The model's per-row and per-cell costs are those
+# of one launch at the chunk cap, where a trace's launches are small:
+# each adds a device floor of a few microseconds that the model puts in
+# its launch overhead (so the ratio can fall below 1), and its padded
+# rows leave the kernel at the prologue (above 1). The JAX package's
+# accounting, a cell per padded slot, gave 4.9 on the H100. Sharded
+# backend: the model charges a window page the rows of one shard (a
+# deployment's shards run in parallel, each on its own device) where the
+# card runs all SHARDS logical shards of the page, so its lower limit is
+# a third of 1 / SHARDS.
+SIM_RATIO_LIMITS = {"kernel": (1 / 3, 3.0),
+                    "sharded": (1 / (3 * SHARDS), 3.0)}
 # Phase 9: the LM serving path. (a) runs the reference CLI's defaults
 # (launch/serve.py: batch 4, prompts of 4-16 tokens from default_rng(0),
 # 24 new tokens, max_seq 64); (c) a prompt above ATTN_CHUNK_THRESHOLD and
@@ -1172,10 +1194,8 @@ def run_edge(torch, core, data, queries, nres, counts, reset_counts):
 
 def run_sim(torch, core, data, queries, counts, reset_counts):
     """Phase 8: the simulator on the card. The kernel profile first (not
-    counted), then the counted path: trace collection on the kernel
-    backend and the live replay through the async front end."""
-    from torch.profiler import ProfilerActivity, profile as profiler
-
+    counted), then a counted path per backend: trace collection under
+    torch.profiler and the live replay through the async front end."""
     from repro_torch.core import sim
     t0 = time.perf_counter()
     profile = sim.calibrate_kernels()
@@ -1183,79 +1203,141 @@ def run_sim(torch, core, data, queries, counts, reset_counts):
     log("sim kernel profile (calibrate_kernels): " + ", ".join(
         f"{k} {v:.4e}" for k, v in profile.items())
         + f" ({calibrate_s:.1f}s)")
-    cfg = core.ServerConfig(selector_backend="kernel", fast_path_rows=0)
-    reset_counts()
-    t0 = time.perf_counter()
+    kcfg = core.ServerConfig(selector_backend="kernel", fast_path_rows=0)
+    params = sim.calibrate(core.BrTPFServer(data.store, kcfg), queries)
+    params = dataclasses.replace(params, **profile)
+    out = dict(profile=profile, calibrate_s=calibrate_s,
+               params=dataclasses.asdict(params))
+    for backend, cfg, path in (
+            ("kernel", kcfg, "sim"),
+            ("sharded", kcfg.replace(selector_backend="sharded",
+                                     shards=SHARDS), "sim sharded")):
+        reset_counts()
+        t0 = time.perf_counter()
+        traces, charge = sim_charge(torch, core, sim, data, queries, cfg,
+                                    params, backend)
+        # A query cut by the request budget leaves a trace of its first
+        # REQUEST_BUDGET requests, which the model would skip whole (it
+        # replays a trace only if the query completed) while the live
+        # front end serves every request of it: both replay the same
+        # recorded requests once each trace counts as complete.
+        truncated = sum(not t.completed for t in traces)
+        traces = [dataclasses.replace(t, completed=True) for t in traces]
+        lv = sim.live_replay(sim.split_workload(traces, SIM_CLIENTS),
+                             core.BrTPFServer(data.store, cfg), params,
+                             batch_window_s=SIM_WINDOW_S)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = counts(path)
+        # the raw-row gap: the model's memo keys a fragment's owner by
+        # query name, which two queries of one template share
+        apart = sim.simulate(sim.split_workload(
+            [dataclasses.replace(t, name=f"{t.name}#{i}")
+             for i, t in enumerate(traces)], SIM_CLIENTS),
+            dataclasses.replace(params, batch_window_s=SIM_WINDOW_S,
+                                server_workers=1))
+        out[backend] = dict(charge, seconds=secs, launches=launched,
+                            within=lv.within, truncated=truncated,
+                            live=dataclasses.asdict(lv),
+                            cand_rows_named_apart=apart.cand_rows)
+        shard = (f", shard pages |rel err| {lv.shard_within:.3f}"
+                 if backend == "sharded" else "")
+        log(f"sim {backend}: {len(traces)} traces ({truncated} cut at "
+            f"{REQUEST_BUDGET} requests), live replay by {SIM_CLIENTS} "
+            f"clients through a {SIM_WINDOW_S * 1e3:.0f} ms window: "
+            f"launches simulated {lv.simulated_launches} / observed "
+            f"{lv.observed_launches} (|rel err| {lv.within:.3f}), skipped "
+            f"{lv.simulated_skipped} / {lv.observed_skipped}, "
+            f"cand_streamed {lv.simulated_cand} / {lv.observed_cand}, "
+            f"cand_rows {lv.simulated_cand_rows} / "
+            f"{lv.observed_cand_rows} (simulated with each trace named "
+            f"apart {apart.cand_rows}), fused {lv.simulated_fused} / "
+            f"{lv.observed_fused}{shard}, shed {lv.observed_shed}; "
+            f"{secs:.1f}s; launches {launched}")
+        if lv.observed_shed or (backend == "kernel"
+                                and lv.within > MAX_SIM_DISAGREEMENT):
+            raise SmokeFailure(
+                f"sim {backend}: live launches {lv.observed_launches} vs "
+                f"simulated {lv.simulated_launches} (|rel err| "
+                f"{lv.within:.3f} > {MAX_SIM_DISAGREEMENT}) or shed "
+                f"{lv.observed_shed}")
+    return out
+
+
+def sim_charge(torch, core, sim, data, queries, cfg, params, backend):
+    """``collect_traces`` of the queries on one backend under
+    torch.profiler: the model's charge for the traces beside the
+    bind-join kernels' profiled launches and device time. Fails unless
+    the traces' CUDA launches equal the profiled launches and the
+    model's stream plus cells over the device time lies within
+    SIM_RATIO_LIMITS. Returns the traces and the numbers."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+    server = core.BrTPFServer(data.store, cfg)
+    torch.cuda.synchronize()
     with profiler(activities=[ProfilerActivity.CUDA]) as prof:
-        traces = sim.collect_traces(core.BrTPFServer(data.store, cfg),
-                                    queries, "brtpf",
+        traces = sim.collect_traces(server, queries, "brtpf",
                                     request_budget=REQUEST_BUDGET)
         torch.cuda.synchronize()
     joins = [ns for name, ns in device_events(torch, prof)
              if "bindjoin" in name]
-    kernel_device_s = sum(joins) / 1e9
-    model, model_requests = model_kernel_s(sim, traces,
-                                           sim.SimParams(**profile))
-    # A query cut by the request budget leaves a trace of its first
-    # REQUEST_BUDGET requests, which the model would skip whole (it
-    # replays a trace only if the query completed) while the live front
-    # end serves every request of it: both replay the same recorded
-    # requests once each trace counts as complete.
-    truncated = sum(not t.completed for t in traces)
-    traces = [dataclasses.replace(t, completed=True) for t in traces]
-    params = sim.calibrate(core.BrTPFServer(data.store, cfg), queries)
-    params = dataclasses.replace(params, **profile)
-    lv = sim.live_replay(sim.split_workload(traces, SIM_CLIENTS),
-                         core.BrTPFServer(data.store, cfg), params,
-                         batch_window_s=SIM_WINDOW_S)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launched = counts("sim")
-    out = dict(profile=profile, calibrate_s=calibrate_s, seconds=secs,
-               launches=launched, within=lv.within, truncated=truncated,
-               live=dataclasses.asdict(lv),
-               params=dataclasses.asdict(params),
-               collect_launches=len(joins),
-               kernel_device_s=kernel_device_s, model_kernel_s=model)
-    log(f"sim kernel time of trace collection: the model charges "
-        f"{1e3 * sum(model.values()):.3f} ms ("
-        + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in model.items())
-        + f") for {model_requests} kernel-path requests; "
-        f"the card ran the bind-join kernels for "
-        f"{1e3 * kernel_device_s:.3f} ms in {len(joins)} launches "
-        "(torch.profiler)")
-    log(f"sim: {len(traces)} traces ({truncated} cut at {REQUEST_BUDGET} "
-        f"requests), live replay by {SIM_CLIENTS} clients "
-        f"through a {SIM_WINDOW_S * 1e3:.0f} ms window: launches simulated "
-        f"{lv.simulated_launches} / observed {lv.observed_launches} "
-        f"(|rel err| {lv.within:.3f}), skipped {lv.simulated_skipped} / "
-        f"{lv.observed_skipped}, cand_streamed {lv.simulated_cand} / "
-        f"{lv.observed_cand}, cand_rows {lv.simulated_cand_rows} / "
-        f"{lv.observed_cand_rows}, fused {lv.simulated_fused} / "
-        f"{lv.observed_fused}, shed {lv.observed_shed}; {secs:.1f}s; "
-        f"launches {launched}")
-    if lv.within > MAX_SIM_DISAGREEMENT or lv.observed_shed:
-        raise SmokeFailure(f"sim: live launches {lv.observed_launches} vs "
-                           f"simulated {lv.simulated_launches} "
-                           f"(|rel err| {lv.within:.3f} > "
-                           f"{MAX_SIM_DISAGREEMENT}) or shed "
-                           f"{lv.observed_shed}")
-    return out
+    device_s = sum(joins) / 1e9
+    model, requests = model_kernel_s(sim, traces, params)
+    recs = [e for t in traces for e in t.events
+            if isinstance(e, sim.HttpRecord) and e.cand > 0]
+    cuda_launches = sum(e.cuda_launches for e in recs)
+    records = sum(e.launches for e in recs)
+    ratio = {k: (m["stream"] + m["cells"]) / max(device_s, 1e-12)
+             for k, m in model.items()}
+    lo, hi = SIM_RATIO_LIMITS[backend]
+
+    def ms(m):
+        return (f"{1e3 * sum(m.values()):.3f} ms (overhead "
+                f"{1e3 * m['overhead']:.3f}, stream {1e3 * m['stream']:.3f},"
+                f" cells {1e3 * m['cells']:.3f})")
+
+    log(f"sim {backend} backend, kernel time of trace collection: the "
+        "model charges "
+        f"{ms(model['cuda'])} for {requests} kernel-path requests "
+        f"({records} LaunchRecords, {cuda_launches} CUDA launches in the "
+        f"traces); the card ran the bind-join kernels for "
+        f"{1e3 * device_s:.3f} ms in {len(joins)} launches "
+        f"(torch.profiler); stream + cells / device time {ratio['cuda']:.3f}"
+        f" (limits {lo:.3f}-{hi:.3f}); the JAX package's accounting of "
+        f"the same records: {ms(model['jax'])}, ratio {ratio['jax']:.3f}")
+    if cuda_launches != len(joins):
+        raise SmokeFailure(f"sim {backend}: the traces carry {cuda_launches} "
+                           f"CUDA launches, the profiler saw {len(joins)} "
+                           "bind-join launches")
+    if not lo <= ratio["cuda"] <= hi:
+        raise SmokeFailure(f"sim {backend}: the model's stream + cells over "
+                           f"the kernels' device time is {ratio['cuda']:.3f}"
+                           f", outside {lo:.3f}-{hi:.3f}")
+    return traces, dict(requests=requests, launch_records=records,
+                        cuda_launches=cuda_launches,
+                        collect_launches=len(joins),
+                        kernel_device_s=device_s, model_kernel_s=model,
+                        ratio=ratio)
 
 
 def model_kernel_s(sim, traces, params):
-    """What sim.simulate charges for the traces' kernel-path requests
-    served one at a time (a launch overhead per ``launches`` entry, the
-    streamed rows, and a cell per streamed row and padded pattern
-    slot), and how many such requests there are."""
-    out, requests = dict(overhead=0.0, stream=0.0, cells=0.0), 0
+    """What ``sim.simulate`` charges the traces' kernel-path requests
+    served one at a time, through ``sim.kernel_charge`` (its marginal
+    without the request overhead is the cells): as the records give it
+    (``cuda``) and as the JAX package charges the same records, their
+    CUDA fields zeroed (``jax``); and how many such requests there are."""
+    cells_only = dataclasses.replace(params, req_overhead_s=0.0)
+    out = {k: dict(overhead=0.0, stream=0.0, cells=0.0)
+           for k in ("cuda", "jax")}
+    requests = 0
     for ev in (e for t in traces for e in t.events):
         if isinstance(ev, sim.HttpRecord) and ev.cand > 0:
-            n = max(ev.launches, 1)
-            out["overhead"] += n * params.kernel_launch_overhead_s
-            out["stream"] += ev.cand * params.kernel_stream_s
-            out["cells"] += ev.cand * ev.pats * params.kernel_cell_s / n
             requests += 1
+            for k, rec in (("cuda", ev), ("jax", dataclasses.replace(
+                    ev, live_slots=0, cuda_launches=0))):
+                for name, sec in zip(("overhead", "stream", "cells"),
+                                     sim.kernel_charge(rec, cells_only),
+                                     strict=True):
+                    out[k][name] += sec
     return out, requests
 
 
@@ -2475,7 +2557,8 @@ PATH_KERNELS = {
     "sharded backend": ("bindjoin_grouped", "bindjoin_fused"),
     "execute_full": ("tpf_match", "bindjoin"),
     "edge": ("bindjoin_grouped",),
-    "sim": ("bindjoin_grouped",),
+    "sim": ("bindjoin_grouped", "bindjoin_fused"),
+    "sim sharded": ("bindjoin_grouped", "bindjoin_fused"),
 }
 
 
@@ -2568,7 +2651,8 @@ def main() -> int:
             for k in wrappers},
         "execute_full": sharded["execute_full_launches"],
         "edge": edge["resilient"]["launches"],
-        "sim": simulated["launches"]}
+        "sim": simulated["kernel"]["launches"],
+        "sim sharded": simulated["sharded"]["launches"]}
     for path, names in PATH_KERNELS.items():
         missing = [n for n in names if not per_path[path][n]]
         if missing:

@@ -89,8 +89,11 @@ class _ClientBase:
         before = self.server.counters.snapshot()
         shard_snap = getattr(self.server, "shard_launch_snapshot", None)
         before_shards = shard_snap() if shard_snap is not None else None
+        work = getattr(self.server, "cuda_work", None)
+        before_work = work() if work is not None else None
         frag = self.server.handle(req)
         after = self.server.counters
+        after_work = work() if work is not None else None
         # Structured per-request record: feeds the multi-client
         # throughput simulation (trace replay; see core/sim.py). The
         # kernel-launch geometry (candidates streamed / pattern slots)
@@ -118,6 +121,13 @@ class _ClientBase:
                 tuple((shard_snap() - before_shards).astype(int).tolist())
                 if before_shards is not None and before_shards.size
                 else ()),
+            # what the CUDA kernels did for this request (the port's
+            # own): launches, one per grouped or fused chunk, and the
+            # live pattern slots of its LaunchRecords
+            "cuda_launches": (after_work.launches - before_work.launches
+                              if work is not None else 0),
+            "live_slots": (after_work.live_slots - before_work.live_slots
+                           if work is not None else 0),
         })
         self.client_cache.put(req.key(), frag)
         return frag

@@ -42,9 +42,10 @@ from .fragments import FragmentStore, fragment_key
 from .kernel_selectors import (_EMPTY, FusedSegment, LaunchRecord,
                                consult_fragments, consult_segment,
                                finish_segment, fusion_legality,
-                               grouped_results, marshal_pattern_grid,
-                               record_fragments, select_block_numpy,
-                               stream_order)
+                               grouped_results, live_slot_count,
+                               marshal_pattern_grid, record_fragments,
+                               select_block_numpy, stream_order)
+from .metrics import CudaWork
 from .placement import HeatLog, Placement
 from .rdf import TriplePattern, is_var
 from .selectors import instantiate_patterns
@@ -888,6 +889,9 @@ class ShardedSelector:
         # group's (round, segment) pages, against one LaunchRecord per
         # round in ``launches``.
         self.fused_chunks = 0
+        # What the CUDA kernels did: launches (grouped_chunks +
+        # fused_chunks) and each LaunchRecord's live slots.
+        self.cuda = CudaWork()
         # Placement surfaces (docs/federation.md, "Placement"): the
         # bounded heat log the re-partitioner consumes, and per-shard
         # attribution counters -- launches a shard had work in, candidate
@@ -1132,6 +1136,7 @@ class ShardedSelector:
         pats, valid, base_vec = marshal_pattern_grid(tp, patterns,
                                                      gpad, mp)
         slots, live = kops.pack_slots(pats, valid, mp)
+        live_g = live_slot_count(valid)
         index = self.fed.indexes[plan.order]
         shards = self.fed.shards
         dev = self.fed.device
@@ -1144,6 +1149,7 @@ class ShardedSelector:
         def launch(width: int, **where) -> None:
             # one grouped launch over a chunk of pages (or rounds)
             self.grouped_chunks += 1
+            self.cuda.launches += 1
             cnts, per_group = self.fed.grouped_step(
                 index, slots_d, bv_d, live, g, width,
                 count_only=count_only, **where)
@@ -1165,6 +1171,7 @@ class ShardedSelector:
                 self.launches.append(LaunchRecord(
                     cand_streamed=window, pat_slots=gpad * mp,
                     groups=g, pruned=plan.pruned, cand_full=window))
+                self.cuda.live_slots += live_g
                 for s, cs in enumerate(chunks):
                     if r < len(cs):
                         a, b = cs[r]
@@ -1193,6 +1200,7 @@ class ShardedSelector:
                     self.launches.append(LaunchRecord(
                         cand_streamed=window, pat_slots=gpad * mp,
                         groups=g, pruned=plan.pruned, cand_full=window))
+                self.cuda.live_slots += live_g
                 self._charge_shard_page(plan, window, page_idx,
                                         row_sel=row_sel)
                 compact = row_sel is not None
@@ -1352,6 +1360,7 @@ class ShardedSelector:
         slots, live = kops.pack_slots(
             np.concatenate([pg for pg, _v, _b in grids]),
             np.concatenate([v for _p, v, _b in grids]), mp)
+        seg_live = [live_slot_count(v) for _p, v, _b in grids]
         slots_d = _to(slots.reshape(s, g_pad, mp, 4), dev)
         bvs_d = _to(np.stack([b for _p, _v, b in grids]), dev)
         for _si, _pl, _om, _live, plan in items:
@@ -1375,6 +1384,7 @@ class ShardedSelector:
                 pruned=any(items[wi][4].pruned for wi in active),
                 cand_full=len(active) * wp,
                 segments=len(active)))
+            self.cuda.live_slots += max(seg_live[wi] for wi in active)
             pages += [(wi, items[wi][4].pages[r]) for wi in active]
 
         # each segment's bound-prefix range, searched once for all shards
@@ -1403,6 +1413,7 @@ class ShardedSelector:
                 gathered = _to(np.logical_not(only_counts), dev,
                                torch.uint8)
             self.fused_chunks += 1
+            self.cuda.launches += 1
             cnts, per_seg = self.fed.fused_step(
                 index, slots_d, bvs_d, live, g_pad, window,
                 torch.stack([lo, hi], dim=-1), seg_d.to(torch.int32),

@@ -55,6 +55,7 @@ import torch
 
 from ..kernels import ops as kops
 from .fragments import FragmentStore, fragment_key
+from .metrics import CudaWork
 from .rdf import TriplePattern, is_var
 from .selectors import instantiate_patterns
 from .store import _ORDERS, TripleStore, _pack
@@ -214,9 +215,14 @@ class LaunchRecord:
 
     The single accounting surface for every accelerated selector path:
     :class:`KernelSelector` records one per grouped or fused bind-join
-    launch (``cand_streamed`` = padded range bucket). The fields are the
-    JAX package's, including those its sharded selector (not ported
-    yet) fills, so that both packages' records compare field by field.
+    launch (``cand_streamed`` = padded range bucket), and
+    :class:`~repro_torch.core.federation.ShardedSelector` one per window
+    page or routed round (``cand_streamed`` = the rows one shard streams,
+    ``reclaimed_rows`` for sub-window compaction) and one per fused
+    round (``segments`` = the round's active segments). The fields are
+    the JAX package's, so that both packages' records compare field by
+    field; what the CUDA kernels did beyond them (launches per chunk,
+    live slots) is the selectors' :class:`~repro_torch.core.metrics.CudaWork`.
 
     ``skipped=True`` records a launch that was *avoided* because the
     requested fragment was already resident in the unified fragment
@@ -296,6 +302,15 @@ def marshal_pattern_grid(
         eq_po=int(is_var(comps[1]) and comps[1] == comps[2]),
     )
     return pats, valid, base_vec
+
+
+def live_slot_count(valid: np.ndarray) -> int:
+    """Slots the windowed kernel's loop visits per row for the slot grid
+    ``valid [G, M]``: each group's up to its last valid one (a hole below
+    it stays in the loop), summed over the groups."""
+    v = np.asarray(valid) != 0
+    last = v.shape[-1] - np.argmax(v[..., ::-1], axis=-1)
+    return int(np.where(v.any(axis=-1), last, 0).sum())
 
 
 def stream_order(kept: np.ndarray, first: np.ndarray,
@@ -498,6 +513,9 @@ class KernelSelector:
         self.fast_path_rows = int(fast_path_rows)
         self.device = kops.resolve_device(device)
         self.launches: List[LaunchRecord] = []
+        # what the CUDA kernels did: one launch per grouped or fused
+        # LaunchRecord here, and the live slots of each
+        self.cuda = CudaWork()
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         """Host -> device copy of one launch input (the store is still
@@ -692,6 +710,8 @@ class KernelSelector:
             width=int(max(w[5] for w in work)), live=live)
 
         full_tiles = sum(-(-w[7] // bt) for w in work)
+        self.cuda.launches += 1
+        self.cuda.live_slots += max(live_slot_count(v) for _p, v, _b in grids)
         self.launches.append(LaunchRecord(
             cand_streamed=_pow2_at_least(total_tiles) * bt,
             pat_slots=g_pad * mp,
@@ -814,6 +834,8 @@ class KernelSelector:
             None, self._to_device(slots), self._to_device(base_vec),
             live=live, width=tpad,
             spans=self._to_device(np.array([[[0, t]]], np.int64)))
+        self.cuda.launches += 1
+        self.cuda.live_slots += live_slot_count(valid)
         self.launches.append(
             LaunchRecord(cand_streamed=tpad, pat_slots=g * mp, groups=g,
                          pruned=pruned, cand_full=_bucket(full),

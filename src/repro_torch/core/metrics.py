@@ -74,6 +74,28 @@ class Counters:
             setattr(self, f.name, 0)
 
 
+@dataclasses.dataclass
+class CudaWork:
+    """The work an accelerated selector gave the CUDA bind-join kernels,
+    beside :class:`Counters` (whose fields stay the JAX package's).
+
+    ``launches`` counts kernel launches: one per grouped or fused launch
+    of the kernel backend, one per grouped or fused chunk of window pages
+    of the sharded backend (where ``Counters.kernel_launches`` counts a
+    LaunchRecord per page). ``live_slots`` sums, over the LaunchRecords
+    charged, the pattern slots the kernel's loop visits per streamed row:
+    each group's slots up to its last valid one (``pat_slots`` sums the
+    padded ones); a fused record counts its widest segment's, as
+    ``pat_slots`` counts one segment's grid. The throughput simulator
+    charges these (``sim.kernel_charge``)."""
+
+    launches: int = 0
+    live_slots: int = 0
+
+    def snapshot(self) -> "CudaWork":
+        return dataclasses.replace(self)
+
+
 METRICS_VERSION = "brtpf/v1"
 
 

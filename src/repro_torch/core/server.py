@@ -57,7 +57,7 @@ from .cache import LRUCache, request_key
 from .config import (DEFAULT_MAX_MPR, DEFAULT_META_TRIPLES_PER_PAGE,
                      DEFAULT_PAGE_SIZE, ServerConfig)
 from .fragments import FragmentStore
-from .metrics import Counters, metrics_snapshot
+from .metrics import Counters, CudaWork, metrics_snapshot
 from .rdf import TriplePattern
 from .selectors import (Fragment, brtpf_select_with_cnt,
                         instantiate_patterns, tpf_select)
@@ -511,6 +511,14 @@ class BrTPFServer:
         if sel is not None and hasattr(sel, "shard_pages"):
             return np.array(sel.shard_pages, dtype=np.int64)
         return np.zeros((0,), dtype=np.int64)
+
+    def cuda_work(self) -> CudaWork:
+        """Copy of the accelerated selector's CUDA kernel work (launches
+        and live slots; zeros on the numpy backend) -- the delta surface
+        the client's per-request trace record reads for the simulator's
+        charge (``sim.kernel_charge``)."""
+        sel = self._selector
+        return sel.cuda.snapshot() if sel is not None else CudaWork()
 
     def repartition(self, heat=None) -> None:
         """Workload-aware re-fragmentation cutover (docs/federation.md,

@@ -75,6 +75,15 @@ class HttpRecord:
     # so --live can validate per-shard launch counts after a
     # workload-aware repartition (docs/federation.md, "Placement").
     shard_pages: tuple = ()
+    # what the CUDA kernels did for the request (the port's own fields;
+    # 0 on the JAX package's traces and on old ones, which are then
+    # charged the JAX package's way): the pattern slots its LaunchRecords
+    # carried up to each group's last valid one -- the slots the kernel's
+    # loop visits per streamed row, summed like ``pats`` -- and its CUDA
+    # launches, one per grouped or fused chunk of window pages (on the
+    # kernel backend one per LaunchRecord, so equal to ``launches``).
+    live_slots: int = 0
+    cuda_launches: int = 0
 
 
 @dataclasses.dataclass
@@ -153,13 +162,14 @@ class SimParams:
     # chip_smoke.py's phase 8 on an NVIDIA H100 80GB HBM3, power limit
     # 700.00 W: the host wall time of a one-page launch through to its
     # completion, and the device time per (row, live slot) cell and per
-    # streamed row at the chunk cap. The replay keeps the JAX package's
-    # accounting, which counts other quantities than the CUDA kernel
-    # runs: it charges a cell per padded pattern slot (``pats``, 128 a
-    # launch) where the kernel loops over the live ones only, and a
-    # launch overhead per ``launches`` entry, which on the sharded
-    # backend is one per window page where one CUDA launch serves a
-    # whole chunk of pages. Both overstate the kernel's time.
+    # streamed row at the chunk cap. ``kernel_charge`` charges a port
+    # trace the CUDA kernels' own work: a launch overhead per CUDA launch
+    # (``cuda_launches``: one per chunk of window pages on the sharded
+    # backend), each streamed row (``cand``), and a cell per streamed
+    # row and live pattern slot (``live_slots``: the kernel's loop stops
+    # at each group's last valid slot). A record without those fields
+    # (the JAX package's traces) is charged the JAX package's way: an
+    # overhead per LaunchRecord and a cell per padded slot (``pats``).
     kernel_launch_overhead_s: float = 4.7306e-05
     kernel_cell_s: float = 6.9297e-13    # per compare-grid cell
     kernel_stream_s: float = 1.3413e-11  # per candidate triple streamed
@@ -182,6 +192,36 @@ class SimParams:
     # served from the memo at servlet overhead. Mirrors the real
     # server's memo-capacity LRU.
     selector_memo_entries: int = 256
+
+
+def kernel_charge(ev: HttpRecord, params: SimParams
+                  ) -> Tuple[float, float, float]:
+    """The seconds a kernel-path request (``cand > 0``) costs the server:
+    ``(overhead, stream, marginal)``.
+
+    ``overhead`` is the dispatch cost of its launches, ``stream`` that of
+    its ``cand`` streamed candidate rows, and ``marginal`` the work that
+    never batches: HTTP handling (``req_overhead_s``) and its own compare
+    cells, ``cand`` rows times the slots of its launch share per
+    LaunchRecord (both summed over the request's ``launches`` records,
+    so the per-record grid is cand/n * slots/n, summed over n). A record
+    with ``cuda_launches`` or ``live_slots`` set is charged the CUDA
+    kernels' work: an overhead per CUDA launch and a cell per live slot.
+    One with neither (the JAX package's traces, old pickles) is charged
+    as the JAX package charges it: an overhead per LaunchRecord and a
+    cell per padded slot (``pats``).
+    """
+    n_launch = max(ev.launches, 1)
+    if ev.cuda_launches or ev.live_slots:
+        overhead = ev.cuda_launches * params.kernel_launch_overhead_s
+        slots = ev.live_slots
+    else:
+        overhead = n_launch * params.kernel_launch_overhead_s
+        slots = ev.pats
+    stream = ev.cand * params.kernel_stream_s
+    marginal = (params.req_overhead_s
+                + ev.cand * slots * params.kernel_cell_s / n_launch)
+    return overhead, stream, marginal
 
 
 def calibrate(server: BrTPFServer, workload, reps: int = 3) -> SimParams:
@@ -682,19 +722,10 @@ def simulate(traces_per_client: Sequence[Sequence[QueryTrace]],
                 # optional cross-request batching on the pattern key.
                 # ``cand`` already sums the candidate rows streamed over
                 # all of the request's launches (window pages on the
-                # sharded backend run as separate launches -- on every
-                # shard in parallel -- so each pays dispatch overhead
-                # but the HBM stream total is just ``cand``).
+                # sharded backend run on every shard in parallel, so the
+                # HBM stream total is just ``cand``).
                 n_launch = max(ev.launches, 1)
-                overhead = n_launch * params.kernel_launch_overhead_s
-                stream = ev.cand * params.kernel_stream_s
-                # per-request work that never batches: HTTP handling +
-                # this request's own pattern-slot compare cells (pats
-                # sums per-launch slot counts, so the per-launch grid is
-                # cand/n * pats/n cells, summed over n launches).
-                marginal = (params.req_overhead_s
-                            + ev.cand * ev.pats
-                            * params.kernel_cell_s / n_launch)
+                overhead, stream, marginal = kernel_charge(ev, params)
                 launch, created, new_seg, dup = server.schedule_launch(
                     t, ev.pattern_key, overhead, stream, marginal,
                     cand_rows=ev.cand_rows or ev.cand,
@@ -841,8 +872,14 @@ class LiveValidation:
     observed_cand: int = 0
     # raw (pre-padding) candidate rows. The padded totals above shift
     # with how requests regroup into launches (pow2/tile padding is not
-    # additive); raw rows are composition-invariant, so this is the
-    # tight streaming-agreement check under fusion.
+    # additive); raw rows do not: the live total is the traces' summed
+    # ``cand_rows`` over the requests that launched, however they were
+    # batched or fused. The two sides part where their memos skip
+    # different requests: the model keys a fragment's owner by query
+    # name, so when two queries of a workload share a name (two
+    # instances of one WatDiv template), a record of the second that
+    # launched at collection (cand > 0) is taken for a repeat execution
+    # of the first and skipped, where the live server launches it.
     simulated_cand_rows: int = 0
     observed_cand_rows: int = 0
     # cross-pattern fusion validation: launches that served >= 2
@@ -1065,7 +1102,19 @@ def main(argv=None) -> int:
           f"fused_launches={sim.fused_launches} "
           f"fused_segments_per_launch={sim.fused_segments_per_launch:.2f} "
           f"cand_streamed={sim.cand_streamed} "
-          f"cand_per_request={sim.cand_per_request:.0f}")
+          f"cand_per_request={sim.cand_per_request:.0f} "
+          f"throughput_per_hour={sim.throughput_per_hour:.1f} "
+          f"avg_qet={sim.avg_qet:.6f}s")
+    # the same traces charged as the JAX package charges them (their
+    # CUDA fields zeroed): a launch overhead per LaunchRecord, a cell
+    # per padded pattern slot
+    jax_like = simulate([[dataclasses.replace(t, events=[
+        dataclasses.replace(ev, live_slots=0, cuda_launches=0)
+        if isinstance(ev, HttpRecord) else ev for ev in t.events])
+        for t in client] for client in per_client], params)
+    print(f"sim (the JAX package's kernel accounting): "
+          f"throughput_per_hour={jax_like.throughput_per_hour:.1f} "
+          f"avg_qet={jax_like.avg_qet:.6f}s")
     if not args.live:
         return 0
 

@@ -502,6 +502,47 @@ def test_sharded_fused_one_launch_per_chunk(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["kernel", "sharded"])
+def test_sim_traces_count_the_cuda_launches(cuda_device, monkeypatch,
+                                             backend):
+    """``collect_traces`` on the card, on the kernel backend and on the
+    sharded backend (four shards, 16-row windows, the chunk cap forced to
+    three pages): the traces' CUDA launches equal the bind-join wrappers'
+    launches, and every record equals the CPU run's."""
+    import dataclasses
+
+    from repro_torch.core import BrTPFServer, ServerConfig, federation, sim
+    from repro_torch.data import watdiv
+
+    data = watdiv.generate(watdiv.WatDivScale(
+        users=120, products=60, reviews=180, retailers=6, genres=8,
+        cities=10, tags=12), seed=3)
+    queries = watdiv.generate_workload(data, 4, seed=1)[:3]
+    monkeypatch.setattr(federation, "MAX_CHUNK_ROWS", 3 * 4 * 16)
+    cfg = ServerConfig(selector_backend=backend, shards=4, shard_window=16,
+                       fast_path_rows=0)
+
+    def run(device):
+        traces = sim.collect_traces(
+            BrTPFServer(data.store, cfg.replace(device=device)), queries,
+            "brtpf", request_budget=40)
+        return [dataclasses.asdict(ev) for t in traces for ev in t.events
+                if isinstance(ev, sim.HttpRecord)]
+
+    wrappers = (tbindjoin.bindjoin_grouped_cuda,
+                tbindjoin.bindjoin_fused_cuda, tbindjoin.bindjoin_cuda,
+                tpf_match_cuda)
+    before = [w.launches for w in wrappers]
+    got = run(cuda_device)
+    launched = [w.launches - b for w, b in zip(wrappers, before,
+                                                strict=True)]
+    assert got == run("cpu")
+    cuda_launches = sum(r["cuda_launches"] for r in got)
+    assert cuda_launches == sum(launched) == launched[0] > 0
+    assert sum(r["launches"] for r in got) >= cuda_launches
+
+
+@pytest.mark.cuda
 def test_edge_router_on_card_equals_numpy_app(cuda_device):
     """The port's ASGI app over a 2-replica kernel-backend router on the
     card (``device=None``) returns the fragment bodies of a numpy-backend

@@ -3,13 +3,19 @@
 * ``collect_traces`` records the same per-request events on both
   packages' servers (kernel backend, and the sharded backend at one
   shard): keys, rows scanned and received, candidate rows streamed,
-  pattern slots and launches;
+  pattern slots and launches; the port's records also carry the CUDA
+  kernels' own work (``live_slots``, ``cuda_launches``), which the
+  selectors count beside the JAX package's accounting;
 * the same traces through both packages' ``simulate`` with the same
   ``SimParams`` give equal ``SimResult``s, with and without batching,
   fusion and the shared cache;
 * ``live_replay`` agrees with the live async front end within the JAX
   package's 10% bound (``tests/test_batching.py``'s case, and the port's
   own traces of a WatDiv-like workload);
+* ``kernel_charge`` charges a record with those fields an overhead per
+  CUDA launch and a cell per live slot, never more than the JAX
+  package's charge, and a record without them (the JAX package's
+  traces) exactly that charge;
 * the port's ``SimParams`` carries none of the JAX package's TPU
   constants, and ``calibrate_kernels`` times only the card.
 
@@ -65,10 +71,23 @@ def as_port(traces):
         t.completed) for t in traces]
 
 
+# the fields both packages' HttpRecords have
+REF_FIELDS = tuple(f.name for f in dataclasses.fields(jsim.HttpRecord))
+# the port's own: what the CUDA kernels did
+CUDA_FIELDS = ("live_slots", "cuda_launches")
+
+
 def events(traces):
+    """Each trace's events, a record as its JAX package fields."""
     return [(t.name, t.completed, [
-        dataclasses.asdict(ev) if dataclasses.is_dataclass(ev) else ev
+        {k: getattr(ev, k) for k in REF_FIELDS}
+        if dataclasses.is_dataclass(ev) else ev
         for ev in t.events]) for t in traces]
+
+
+def records(traces):
+    return [ev for t in traces for ev in t.events
+            if isinstance(ev, tsim.HttpRecord)]
 
 
 @pytest.fixture(scope="module")
@@ -87,10 +106,18 @@ def kernel_traces(datasets):
 def test_kernel_traces_equal_reference(kernel_traces):
     jtr, ttr = kernel_traces
     assert events(ttr) == events(jtr)
-    recs = [ev for t in ttr for ev in t.events
-            if isinstance(ev, tsim.HttpRecord)]
+    recs = records(ttr)
     assert sum(r.launches for r in recs) > 0
     assert sum(r.cand for r in recs) > 0
+    # one CUDA launch per LaunchRecord on the kernel backend, and the
+    # live slots within the padded ones
+    for r in recs:
+        if r.cand > 0:
+            assert r.cuda_launches == r.launches
+            assert 0 < r.live_slots <= r.pats
+        else:
+            assert r.cuda_launches == r.live_slots == 0
+    assert any(r.live_slots < r.pats for r in recs if r.cand > 0)
 
 
 @pytest.mark.parametrize("kind", ["tpf", "sharded"])
@@ -110,6 +137,158 @@ def test_other_traces_equal_reference(datasets, kind):
     ttr = tsim.collect_traces(tsrv, workload(twatdiv, tdata)[:2], client,
                               request_budget=80)
     assert events(ttr) == events(jtr)
+    recs = records(ttr)
+    sel = tsrv._selector
+    if kind == "tpf":
+        assert all(r.cuda_launches == r.live_slots == 0 for r in recs)
+    else:
+        assert sum(r.cuda_launches for r in recs) \
+            == sel.grouped_chunks + sel.fused_chunks > 0
+        assert all(0 < r.live_slots <= r.pats for r in recs if r.cand)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_sharded_traces_count_cuda_launches(datasets, monkeypatch, shards):
+    """The sharded backend with 16-row windows and the chunk cap forced to
+    two pages (as ``TestChunkedPlans`` in test_torch_federation.py): the
+    traces' CUDA launches sum to the selector's grouped and fused chunks,
+    fewer than the LaunchRecords, and a record's live slots are one
+    group's per LaunchRecord."""
+    import repro_torch.core.federation as tfed
+    _, tdata = datasets
+    window = 16
+    monkeypatch.setattr(tfed, "MAX_CHUNK_ROWS", 2 * shards * window)
+    srv = tcore.BrTPFServer(tdata.store, tcore.ServerConfig(
+        selector_backend="sharded", shards=shards, shard_window=window,
+        device="cpu"))
+    recs = records(tsim.collect_traces(srv, workload(twatdiv, tdata)[:2],
+                                       "brtpf", request_budget=40))
+    sel = srv._selector
+    kernel = [r for r in recs if r.cand > 0]
+    assert sum(r.cuda_launches for r in recs) \
+        == sel.grouped_chunks + sel.fused_chunks
+    assert sum(r.launches for r in kernel) \
+        > sum(r.cuda_launches for r in kernel) > 0
+    for r in kernel:
+        assert 1 <= r.cuda_launches <= r.launches
+        per_record, rest = divmod(r.live_slots, r.launches)
+        assert rest == 0 and 0 < per_record <= r.pats // r.launches
+        assert len(r.shard_pages) == shards
+    assert all(r.cuda_launches == r.live_slots == 0 for r in recs
+               if r.cand == 0)
+
+
+def synthetic_trace():
+    """Three records by hand: a numpy-backend request, a kernel-backend
+    one (one launch, 5 of 128 slots live) and a sharded one (8 window
+    pages of 256 rows in one CUDA launch, 3 of 128 slots live)."""
+    V = tcore.encode_var
+    keys = [tcore.Request(tcore.TriplePattern(V(0), p, V(1)), None,
+                          0).key() for p in (3, 5, 7)]
+    return [
+        tsim.HttpRecord(key=keys[0], lookups=2, scanned=50, recv=40),
+        tsim.HttpRecord(key=keys[1], lookups=1, scanned=30, recv=20,
+                        pattern_key=keys[1][0], cand=2048, pats=128,
+                        launches=1, cand_rows=1500, live_slots=5,
+                        cuda_launches=1),
+        tsim.HttpRecord(key=keys[2], lookups=1, scanned=10, recv=10,
+                        pattern_key=keys[2][0], cand=8 * 256,
+                        pats=8 * 128, launches=8, live_slots=8 * 3,
+                        cuda_launches=1, shard_pages=(8,))]
+
+
+def test_kernel_charge_of_a_synthetic_trace():
+    """The charge of each record and the replayed query time, by hand,
+    under the CUDA accounting and (the two fields zeroed) the JAX
+    package's, which the reference simulator gives too."""
+    p = tsim.SimParams(kernel_launch_overhead_s=5e-5, kernel_cell_s=1e-12,
+                       kernel_stream_s=1e-11, req_overhead_s=1e-3,
+                       pipeline_depth=1, net_latency_s=1e-3,
+                       client_overhead_s=2e-4, lookup_s=2e-4,
+                       scan_s_per_triple=1.5e-6, bytes_per_triple=120.0,
+                       bandwidth_bps=1.25e9)
+    cuda = synthetic_trace()
+    ref = [dataclasses.replace(ev, live_slots=0, cuda_launches=0)
+           for ev in cuda]
+    o, s, c, r = (p.kernel_launch_overhead_s, p.kernel_stream_s,
+                  p.kernel_cell_s, p.req_overhead_s)
+    charges = {
+        "cuda": [(o, 2048 * s, r + 2048 * 5 * c),
+                 (o, 2048 * s, r + 2048 * 3 * c)],
+        "ref": [(o, 2048 * s, r + 2048 * 128 * c),
+                (8 * o, 2048 * s, r + 2048 * 128 * c)]}
+    numpy_s = r + 2 * p.lookup_s + 50 * p.scan_s_per_triple
+    for name, trace in (("cuda", cuda), ("ref", ref)):
+        got = [tsim.kernel_charge(ev, p) for ev in trace[1:]]
+        assert got == pytest.approx(charges[name], rel=1e-12, abs=0)
+        # one query of the three records, one client, nothing batched:
+        # each record's latency, service, transfer and client overhead
+        want = sum(2 * p.net_latency_s + ev.recv * p.bytes_per_triple
+                   / p.bandwidth_bps + p.client_overhead_s
+                   for ev in trace) + numpy_s + sum(map(sum,
+                                                        charges[name]))
+        res = tsim.simulate([[tsim.QueryTrace("q", trace, True)]], p)
+        assert (res.completed, res.launches, res.kernel_requests) \
+            == (1, 9, 2)
+        assert res.qets == pytest.approx([want], rel=1e-12, abs=0)
+    jp = jsim.SimParams(**dataclasses.asdict(p))
+    jrec = [jsim.HttpRecord(**{k: getattr(ev, k) for k in REF_FIELDS})
+            for ev in ref]
+    want = jsim.simulate([[jsim.QueryTrace("q", jrec, True)]], jp)
+    got = tsim.simulate([[tsim.QueryTrace("q", ref, True)]], p)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "sharded"])
+def test_cuda_charge_never_exceeds_reference(kernel_traces, datasets,
+                                             backend):
+    """Per kernel-path record of the port's traces: the CUDA charge's
+    overhead and cells are at most the JAX package's, its stream equal."""
+    if backend == "kernel":
+        ttr = kernel_traces[1]
+    else:
+        _, tdata = datasets
+        srv = tcore.BrTPFServer(tdata.store, tcore.ServerConfig(
+            selector_backend="sharded", shards=4, shard_window=64,
+            device="cpu"))
+        ttr = tsim.collect_traces(srv, workload(twatdiv, tdata)[:2],
+                                  "brtpf", request_budget=40)
+    p = tsim.SimParams(**TEST_PROFILE)
+    kernel = [r for r in records(ttr) if r.cand > 0]
+    assert kernel
+    for ev in kernel:
+        got = tsim.kernel_charge(ev, p)
+        ref = tsim.kernel_charge(
+            dataclasses.replace(ev, live_slots=0, cuda_launches=0), p)
+        assert got[0] <= ref[0] and got[1] == ref[1] and got[2] <= ref[2]
+    assert any(tsim.kernel_charge(ev, p)[2] < tsim.kernel_charge(
+        dataclasses.replace(ev, live_slots=0, cuda_launches=0), p)[2]
+        for ev in kernel)
+
+
+@pytest.mark.parametrize("names", [("C1", "C1"), ("C1", "C1b")])
+def test_memo_owner_is_the_query_name(names):
+    """The raw-row gap of the live replay, in both packages: two queries
+    whose traces each launched the same fragment (cand > 0). Under one
+    name the model takes the second for a repeat execution of the first
+    and skips it, where the live server launches it; under two names
+    both launch."""
+    V = tcore.encode_var
+    key = tcore.Request(tcore.TriplePattern(V(0), 3, V(1)), None,
+                        0).key()
+    rec = dict(key=key, lookups=1, scanned=100, recv=100,
+               pattern_key=key[0], cand=1024, pats=128, launches=1,
+               cand_rows=900, cand_full_rows=900)
+    got = tsim.simulate([[tsim.QueryTrace(n, [tsim.HttpRecord(**rec)],
+                                          True) for n in names]],
+                        tsim.SimParams(**TEST_PROFILE))
+    want = jsim.simulate([[jsim.QueryTrace(n, [jsim.HttpRecord(**rec)],
+                                           True) for n in names]],
+                         jsim.SimParams(**TEST_PROFILE))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    same = names[0] == names[1]
+    assert (got.launches, got.launches_skipped, got.cand_rows) \
+        == ((1, 1, 900) if same else (2, 0, 1800))
 
 
 @pytest.mark.parametrize("clients", [1, 4, 16])
@@ -256,3 +435,4 @@ def test_main_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "validation: simulated=" in out
     assert "kernel profile" not in out
+    assert "sim (the JAX package's kernel accounting): throughput" in out
