@@ -113,9 +113,11 @@ printing its own lines:
    engine's distributed step as rank 0 of gpu32x8 for real on the card,
    2^30 / 32 random triples: its local page and count must equal the
    single-card step's and both kernels must launch, with ms and peak
-   memory beside the dry-run's; (c) qwen2-1.5b's train_4k and
-   decode_32k steps as rank 0 for real, peak memory within
-   MEM_RATIO_LIMITS of the dry-run's prediction.
+   memory beside the dry-run's; (c) qwen2-1.5b's train_4k step as rank
+   0 of gpu32x8 and of gpu2x32x8 and its decode_32k step on gpu32x8 for
+   real, peak memory within MEM_RATIO_LIMITS of the dry-run's
+   prediction, and the dry-run's two-pod train_4k GB within
+   POD_RATIO_LIMIT of the one-pod GB.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -2278,7 +2280,16 @@ ENGINE_TERMS, ENGINE_PREDICATES, ENGINE_ITERS = 1 << 20, 64, 10
 # the trace counts storages the program never holds at once. A miss is
 # a finding, reported and failed, never widened.
 MEM_RATIO_LIMITS = (0.90, 1.25)
-RANK0_CELLS = ("train_4k", "decode_32k")
+# (shape, multi_pod) of each rank-0 run: train_4k on both meshes (the
+# same 4-row microbatch), decode_32k on gpu32x8.
+RANK0_CELLS = (("train_4k", False), ("train_4k", True),
+               ("decode_32k", False))
+# The dry-run's train_4k per-device GB on gpu2x32x8 over gpu32x8's: both
+# run 4-row microbatches, and the two-pod mesh holds no gradient
+# accumulators between them (grad_accum 1 against 2), so it needs no
+# more memory; 10% covers the pod axis's own ZeRO shards and
+# collectives. A miss fails the phase.
+POD_RATIO_LIMIT = 1.10
 
 
 def dryrun_table(torch, smi):
@@ -2456,21 +2467,24 @@ def fill_rank0(torch, tree, gen, vocab):
 
 
 def qwen_rank0(torch, smi, cells):
-    """Phase 12 (c): qwen2-1.5b's train_4k and decode_32k steps as rank 0
-    of gpu32x8, run for real on the card over the fake group (local bf16
-    shards from a seed; collectives return unreduced, so no value is
-    checked): ms and peak memory against the dry-run's prediction."""
+    """Phase 12 (c): qwen2-1.5b's train_4k step as rank 0 of gpu32x8 and
+    of gpu2x32x8, and its decode_32k step on gpu32x8, run for real on
+    the card over the fake group (local bf16 shards from a seed;
+    collectives return unreduced, so no value is checked): ms and peak
+    memory against the dry-run's prediction, and the dry-run's two-pod
+    train_4k GB against its one-pod GB (``POD_RATIO_LIMIT``)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.launch.dryrun import build_step, cell_config
-    from repro_torch.launch.mesh import PRODUCTION, fake_mesh
+    from repro_torch.launch.mesh import PRODUCTION, fake_mesh, mesh_name
     from repro_torch.sharding.rules import default_rules, use_rules
     out = {}
-    for shape_name in RANK0_CELLS:
+    for shape_name, multi_pod in RANK0_CELLS:
         cfg, shape = cell_config("qwen2-1.5b", shape_name, False)
-        rules = default_rules()
-        rec = cells[f"qwen2-1.5b/{shape_name}/gpu32x8"]
-        with fake_mesh(*PRODUCTION[False], device_type="cuda") as mesh:
+        rules = default_rules(multi_pod=multi_pod)
+        name = mesh_name(multi_pod, False)
+        rec = cells[f"qwen2-1.5b/{shape_name}/{name}"]
+        with fake_mesh(*PRODUCTION[multi_pod], device_type="cuda") as mesh:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2493,21 +2507,32 @@ def qwen_rank0(torch, smi, cells):
             del model, step, args, result
         want = rec["roofline"]["memory_per_device_gb"]
         ratio = peak / want
-        out[shape_name] = dict(ms=ms, wall_s=wall, peak_gb=peak,
-                               dryrun_gb=want, ratio=ratio,
-                               limits=MEM_RATIO_LIMITS)
-        log(f"qwen2-1.5b rank 0 {shape_name} on the card: {ms:.1f} ms "
-            f"(host {wall:.2f} s), peak {peak:.3f} GB against the "
-            f"dry-run's {want:.3f} GB per device (ratio {ratio:.3f}, "
+        out[f"{shape_name}/{name}"] = dict(
+            ms=ms, wall_s=wall, peak_gb=peak, dryrun_gb=want, ratio=ratio,
+            limits=MEM_RATIO_LIMITS)
+        log(f"qwen2-1.5b rank 0 {shape_name} {name} on the card: "
+            f"{ms:.1f} ms (host {wall:.2f} s), peak {peak:.3f} GB against "
+            f"the dry-run's {want:.3f} GB per device (ratio {ratio:.3f}, "
             f"limits {MEM_RATIO_LIMITS[0]}-{MEM_RATIO_LIMITS[1]}); the "
             f"dry-run's memory + compute "
             f"{(rec['roofline']['memory_s'] + rec['roofline']['compute_s']) * 1e3:.1f}"
             f" ms | {smi}")
         torch.cuda.empty_cache()
         if not MEM_RATIO_LIMITS[0] <= ratio <= MEM_RATIO_LIMITS[1]:
-            raise SmokeFailure(f"qwen2-1.5b rank 0 {shape_name}: peak "
-                               f"{peak:.3f} GB is {ratio:.3f} x the "
+            raise SmokeFailure(f"qwen2-1.5b rank 0 {shape_name} {name}: "
+                               f"peak {peak:.3f} GB is {ratio:.3f} x the "
                                f"dry-run's {want:.3f} GB")
+    one, two = (cells[f"qwen2-1.5b/train_4k/{m}"]["roofline"]
+                ["memory_per_device_gb"] for m in ("gpu32x8", "gpu2x32x8"))
+    out["pod_ratio"] = dict(gpu32x8_gb=one, gpu2x32x8_gb=two,
+                            ratio=two / one, limit=POD_RATIO_LIMIT)
+    log(f"qwen2-1.5b train_4k dry-run per device: gpu2x32x8 {two:.3f} GB "
+        f"against gpu32x8 {one:.3f} GB (ratio {two / one:.3f}, limit "
+        f"{POD_RATIO_LIMIT}) | {smi}")
+    if two / one > POD_RATIO_LIMIT:
+        raise SmokeFailure(f"qwen2-1.5b train_4k: the dry-run's gpu2x32x8 "
+                           f"{two:.3f} GB per device is {two / one:.3f} x "
+                           f"gpu32x8's {one:.3f} GB")
     return out
 
 

@@ -34,7 +34,10 @@ collectives:
   (``models.mamba``), by ``scan_cost``: its loop's FLOPs and bytes,
   step for step (its backward at twice that);
 * the peak of the bytes held by storages the step allocated (what a
-  compiler calls temporaries, outputs included).
+  compiler calls temporaries, outputs included), and inside the
+  softmax backward the scratch CUDA's kernel allocates and frees before
+  it returns, which no dispatched op shows (``_softmax_backward_scratch``),
+  on whatever device the trace runs.
 
 Hardware model: one NVIDIA H100 SXM at its published peaks (NVIDIA's
 data sheet): 989.4 TFLOP/s dense BF16, 3.35 TB/s HBM3, 450 GB/s per
@@ -118,6 +121,19 @@ def _scan_cost(name: str, args) -> Optional[Tuple[float, float]]:
     flops, nbytes = scan_cost(tuple(u.shape), a.shape[1], u.element_size())
     k = 1.0 if name == "selective_scan" else 2.0
     return k * flops, k * nbytes
+
+
+def _softmax_backward_scratch(args) -> int:
+    """Bytes CUDA's ``_softmax_backward_data`` holds above its output
+    while it runs: ``grad * output`` (``softmax_backward_cuda_out``),
+    and a contiguous copy of that product and of ``output`` where they
+    are not contiguous (``host_softmax_backward``); the product takes
+    the gradient's layout."""
+    grad, output = args[0], args[1]
+    tmp = grad.numel() * torch.promote_types(grad.dtype,
+                                             output.dtype).itemsize
+    return (tmp * (1 if grad.is_contiguous() else 2)
+            + (0 if output.is_contiguous() else _nbytes(output)))
 
 
 class CostCounter(TorchDispatchMode):
@@ -251,6 +267,9 @@ class CostCounter(TorchDispatchMode):
             for o in outs:
                 self._track(o, ins)
             row[3] += self.live - before
+        if name == "_softmax_backward_data":
+            self.peak = max(self.peak,
+                            self.live + _softmax_backward_scratch(args))
         return out
 
     # -- reports ---------------------------------------------------------------

@@ -352,7 +352,9 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         q, k, v = self.project_qkv(x, positions)
         ka, va, _ = kv_like_queries(q, k, v, self.cfg.num_kv_heads)
-        pos = positions[0]
+        # every row's positions are the same: a rank's first row serves
+        pos = (positions.to_local() if isinstance(positions, DTensor)
+               else positions)[0]
         chunk = ATTN_CHUNK
         if s <= ATTN_CHUNK_THRESHOLD or s % chunk != 0:
             out = attend(q, ka, va, lambda sc: self._probs(sc, pos, pos))

@@ -17,12 +17,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.nn import functional as F
 
 from ..configs.base import ATTN, ArchConfig
 from ..kernels.ops import resolve_device
-from ..sharding.rules import constrain
+from ..sharding.rules import constrain, local_inputs
 from .layers import Attention, Embeddings, empty_param, init_parameters, \
     rms_norm
 from .transformer import Block, Cache, Stack, remat
@@ -45,8 +47,7 @@ class Encoder(nn.Module):
         self.norm_f = empty_param(cfg.d_model, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, f, _ = x.shape
-        positions = torch.arange(f, device=x.device).expand(b, f)
+        positions = positions_like(x)
         for block in self.blocks:
             x = remat(self.cfg.remat, lambda blk, x: blk(x, positions)[0],
                       block, x)
@@ -68,10 +69,102 @@ class CrossBlock(nn.Module):
         return x + self.attn.cross(rms_norm(self.norm, x, self.eps), enc_out)
 
 
+def positions_like(x: torch.Tensor) -> torch.Tensor:
+    """Positions ``0 .. S-1`` of every row of ``x (B, S, ...)`` as a
+    ``(B, S)`` tensor. For a ``DTensor``, one placed as ``x``'s rows
+    (each rank holds its own rows' positions): a plain tensor would be
+    the global batch's on every rank, and so would the RoPE angles
+    formed from it."""
+    b, s = x.shape[:2]
+    if not isinstance(x, DTensor):
+        return torch.arange(s, device=x.device).expand(b, s)
+    pl = [p if p.is_shard(0) else Replicate() for p in x.placements]
+    local = x.to_local()
+    rows = torch.arange(s, device=local.device).expand(local.shape[0], s)
+    return DTensor.from_local(rows.contiguous(), x.device_mesh, pl,
+                              run_check=False, shape=torch.Size((b, s)),
+                              stride=(s, 1))
+
+
 def _layer_with_cross(block: Block, cross: CrossBlock, x: torch.Tensor,
                       positions: torch.Tensor, enc_out: torch.Tensor):
     x, aux = block(x, positions)
     return cross(x, enc_out), aux
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """``-log_softmax(x)[t]`` of float32 logits ``x (B, S, Vl)``, one
+    rank's shard of the vocabulary (its rows ``lo .. lo + Vl``), for
+    targets ``t (B, S)`` anywhere in the vocabulary (Megatron's
+    vocab-parallel cross-entropy). ``group`` is the process group that
+    splits the vocabulary, ``None`` when it is whole: the max is reduced
+    over it, and the sum of exponentials with the target's logit (zero
+    on every rank but its owner's) in one all-reduce.
+
+    ``x - max`` is float32, as in ``F.log_softmax``; the exponentials
+    and their sum are float64, and the backward, ``(softmax -
+    one_hot(t)) * grad``, forms the softmax in float64 and rounds once:
+    the ranks' partial sums then meet without a float32 rounding that
+    depends on how many ranks split the vocabulary. Saves the shard's
+    ``x - max`` (float32); the backward needs no collective."""
+
+    @staticmethod
+    def forward(ctx, x, tgt, lo, group):
+        rows = x.shape[-1]
+        m = x.amax(-1)
+        if group is not None:
+            m = funcol.wait_tensor(funcol.all_reduce(m, "max", group))
+        z = x - m[..., None]
+        idx = tgt.long() - lo
+        inside = (idx >= 0) & (idx < rows)
+        idx = idx.clamp(0, rows - 1)
+        picked = torch.gather(z, -1, idx[..., None])[..., 0] * inside
+        sums = torch.stack([z.double().exp_().sum(-1), picked.double()])
+        if group is not None:
+            sums = funcol.wait_tensor(funcol.all_reduce(sums, "sum", group))
+        lse = torch.log(sums[0])
+        ctx.save_for_backward(z, lse, idx, inside)
+        return (lse - sums[1]).float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        z, lse, idx, inside = ctx.saved_tensors
+        grad = grad.double()
+        dx = z.double().sub_(lse[..., None]).exp_().mul_(grad[..., None])
+        dx.scatter_add_(-1, idx[..., None], -(grad * inside)[..., None])
+        return dx.float(), None, None, None
+
+
+def vocab_parallel_nll(logits: DTensor, targets: torch.Tensor) -> DTensor:
+    """Per-position NLL ``(B, S)`` of float32 logits ``(B, S, V)`` whose
+    vocabulary is sharded over the model axis, without gathering it:
+    each rank reduces its own vocabulary shard (``_VocabParallelNLL``),
+    as ``layers._sharded_lookup`` looks up its own rows. The rows keep
+    the logits' batch and sequence placements; the NLL is replicated
+    over the model axis, and the logits' gradient comes back sharded as
+    they are."""
+    mesh = logits.device_mesh
+    mi = mesh.mesh_dim_names.index("model")
+    pl = list(logits.placements)
+    vocab_sharded = pl[mi].is_shard(2)
+    if any(p.is_shard(2) for i, p in enumerate(pl) if i != mi):
+        raise ValueError(f"the vocabulary is split over more than the "
+                         f"model axis: {pl}")
+    if not isinstance(targets, DTensor):
+        targets = DTensor.from_local(targets, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+    t_pl = [Replicate() if p.is_shard(2) else p for p in pl]
+    group = mesh.get_group(mi) if vocab_sharded else None
+
+    def nll(x, tgt):
+        lo = mesh.get_local_rank("model") * x.shape[-1] if vocab_sharded \
+            else 0
+        return _VocabParallelNLL.apply(x, tgt, lo, group)
+
+    return local_map(local_inputs(nll), out_placements=t_pl,
+                     in_placements=(pl, t_pl), in_grad_placements=(pl, t_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(logits,
+                                                                 targets)
 
 
 class Model(nn.Module):
@@ -102,10 +195,6 @@ class Model(nn.Module):
             self.cross = nn.ModuleList(CrossBlock(cfg, dtype, device)
                                        for _ in range(cfg.num_layers))
 
-    def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
-        b, s = tokens.shape
-        return torch.arange(s, device=tokens.device).expand(b, s)
-
     def _enc_out(self, enc_input: Optional[torch.Tensor]) -> torch.Tensor:
         if enc_input is None:
             raise ValueError(f"{self.cfg.name}: an encoder-decoder model "
@@ -121,7 +210,7 @@ class Model(nn.Module):
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B,S) -> (final hidden states (B,S,d), moe_aux)."""
         x = constrain(self.embed(tokens), "batch", "seq", "act_embed")
-        positions = self._positions(tokens)
+        positions = positions_like(tokens)
         if self.cfg.encoder_layers:
             enc_out = self._enc_out(enc_input)
             aux = torch.zeros((), device=x.device)
@@ -165,17 +254,13 @@ class Model(nn.Module):
 
         def ce(lo):
             logits = constrain(self.embed.unembed(x[:, lo:lo + chunk]),
-                               "batch", "seq", "vocab")
-            logp = F.log_softmax(logits.float(), dim=-1)
-            tgt = targets[:, lo:lo + chunk, None].long()
-            if isinstance(logp, DTensor):
-                # a gather's backward scatters into zeros that DTensor
-                # makes whole on every rank (the global batch's logits);
-                # a one-hot product keeps the rows sharded
-                hit = tgt == torch.arange(logp.shape[-1], device=x.device)
-                nll = -(logp * hit).sum(-1)
+                               "batch", "seq", "vocab").float()
+            tgt = targets[:, lo:lo + chunk]
+            if isinstance(logits, DTensor):
+                nll = vocab_parallel_nll(logits, tgt)
             else:
-                nll = -torch.gather(logp, -1, tgt)[..., 0]
+                logp = F.log_softmax(logits, dim=-1)
+                nll = -torch.gather(logp, -1, tgt[..., None].long())[..., 0]
             return (nll * mask[:, lo:lo + chunk]).sum()
 
         total = ce(0)
@@ -203,7 +288,7 @@ class Model(nn.Module):
         b, s = tokens.shape
         cache = self.init_cache(b, max_seq or s)
         x = constrain(self.embed(tokens), "batch", "seq", "act_embed")
-        positions = self._positions(tokens)
+        positions = positions_like(tokens)
         if self.cfg.encoder_layers:
             enc_out = self._enc_out(enc_input)
             for block, cross in zip(self.stack.layers, self.cross,

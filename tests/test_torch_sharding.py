@@ -318,6 +318,20 @@ def test_counter_peak_memory():
     assert c.live == 0
 
 
+@pytest.mark.parametrize("contiguous,want", [(True, 1024), (False, 1536)])
+def test_counter_charges_the_softmax_backward_scratch(contiguous, want):
+    """CUDA's softmax backward holds ``grad * output`` above its 512-byte
+    output while it runs, and a contiguous copy of it when the gradient
+    is not contiguous: the peak counts both, whatever the device."""
+    out = torch.softmax(torch.randn(8, 16), dim=-1)
+    grad = torch.randn(8, 16) if contiguous else torch.randn(16, 8).t()
+    with RL.CostCounter() as c:
+        gi = torch.ops.aten._softmax_backward_data(grad, out, -1,
+                                                   torch.float32)
+    assert gi.shape == (8, 16)
+    assert (c.live, c.peak) == (512, want)
+
+
 def test_roofline_constants_are_the_h100s():
     assert (RL.PEAK_FLOPS, RL.HBM_BW, RL.NVLINK_BW, RL.IB_BW) == (
         989.4e12, 3.35e12, 450e9, 50e9)
@@ -422,15 +436,17 @@ from repro_torch.sharding.rules import (default_rules, guard,
 from repro_torch.train.optimizer import AdamW, AdamWState, constant_lr
 
 rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+shape = tuple(int(n) for n in sys.argv[4].split("x"))
 torch.use_deterministic_algorithms(True)
 dist.init_process_group("gloo", init_method=init, world_size=4, rank=rank)
 try:
-    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
     res = {}
-    for arch in sys.argv[4:]:
+    for arch in sys.argv[5:]:
         cfg = reduced_for_smoke(get_arch(arch))
         model = build_model(cfg, device="cpu")
-        rules = default_rules()
+        rules = default_rules(multi_pod=len(shape) == 3)
         rules.update(dict(cfg.sharding_overrides))
         axes = param_axes(model)
         params = dict(model.named_parameters())
@@ -473,6 +489,9 @@ finally:
 """
 
 PARITY_ARCHS = ["qwen2-1.5b", "olmoe-1b-7b"]
+# (data, model) under the one-pod rules, and (pod, data, model) under the
+# two-pod rules (the batch sharded over pod and data), each 4 processes
+PARITY_MESHES = ["2x2", "2x1x2"]
 
 
 def _env():
@@ -481,20 +500,30 @@ def _env():
 
 @pytest.fixture(scope="module")
 def sharded_results(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("gloo")
-    out = tmp / "rank0.npz"
-    init = f"file://{tmp}/pg"
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, str(r), init, str(out)]
-        + PARITY_ARCHS, env=_env(), cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(4)]
-    errs = []
-    for p in procs:
-        _, err = p.communicate(timeout=300)
-        errs.append(err)
-    assert all(p.returncode == 0 for p in procs), "\n".join(
-        e[-3000:] for e in errs)
-    return dict(np.load(out))
+    """``get(mesh)``: rank 0's results of the 4 gloo processes on that
+    mesh, run once per mesh."""
+    runs = {}
+
+    def get(mesh):
+        if mesh not in runs:
+            tmp = tmp_path_factory.mktemp("gloo")
+            out = tmp / "rank0.npz"
+            init = f"file://{tmp}/pg"
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", _WORKER, str(r), init, str(out),
+                 mesh] + PARITY_ARCHS, env=_env(), cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(4)]
+            errs = []
+            for p in procs:
+                _, err = p.communicate(timeout=300)
+                errs.append(err)
+            assert all(p.returncode == 0 for p in procs), "\n".join(
+                e[-3000:] for e in errs)
+            runs[mesh] = dict(np.load(out))
+        return runs[mesh]
+
+    return get
 
 
 # The tolerance, of each tensor's largest absolute value: 100x float32's
@@ -516,8 +545,11 @@ def _close(got, want, where=None):
     assert err.max(initial=0.0) <= RTOL * scale
 
 
-@pytest.mark.parametrize("arch", PARITY_ARCHS)
-def test_sharded_step_equals_one_process(arch, sharded_results):
+@pytest.mark.parametrize("arch,mesh", [
+    pytest.param(arch, mesh, id=arch if mesh == "2x2" else f"{arch}-{mesh}")
+    for mesh in PARITY_MESHES for arch in PARITY_ARCHS])
+def test_sharded_step_equals_one_process(arch, mesh, sharded_results):
+    sharded_results = sharded_results(mesh)
     cfg = reduced_for_smoke(get_arch(arch))
     model = build_model(cfg, device="cpu")
     rng = np.random.default_rng(0)
