@@ -109,14 +109,18 @@ printing its own lines:
    on fake CUDA tensors (qwen2-1.5b on gpu32x8 and gpu2x32x8,
    granite-moe-1b-a400m and jamba-1.5-large-398b at full width on
    gpu32x8, each over its shapes, and both engine variants): per-device
-   GB and the roofline's compute, memory and collective seconds; (b) the
+   GB, the roofline's compute, memory and collective seconds, the
+   collective bytes and counts per mesh dim, and for a train step the
+   largest parameter gradient rank 0 holds: no gradient may be held
+   above the shard its rules give; (b) the
    engine's distributed step as rank 0 of gpu32x8 for real on the card,
    2^30 / 32 random triples: its local page and count must equal the
    single-card step's and both kernels must launch, with ms and peak
    memory beside the dry-run's; (c) qwen2-1.5b's train_4k step as rank
    0 of gpu32x8 and of gpu2x32x8 and its decode_32k step on gpu32x8 for
    real, peak memory within MEM_RATIO_LIMITS of the dry-run's
-   prediction, and the dry-run's two-pod train_4k GB within
+   prediction, no parameter gradient above its rules' shard, and the
+   dry-run's two-pod train_4k GB within
    POD_RATIO_LIMIT of the one-pod GB.
 
 The line before the last is a JSON object with one entry per kernel;
@@ -2292,10 +2296,25 @@ RANK0_CELLS = (("train_4k", False), ("train_4k", True),
 POD_RATIO_LIMIT = 1.10
 
 
+def check_grads(label, blocks):
+    """Log a train step's largest parameter gradient; fail when one was
+    held above the shard its rules give (``launch.dryrun.GradBlocks``)."""
+    from repro_torch.launch.dryrun import format_grads
+    if blocks is None:
+        return
+    log(f"{label}: {format_grads(blocks)}")
+    if blocks["above_shard"]:
+        raise SmokeFailure(f"{label}: {len(blocks['above_shard'])} "
+                           f"parameter gradients held above their rules' "
+                           f"shard: {blocks['above_shard'][:4]}")
+
+
 def dryrun_table(torch, smi):
     """Phase 12 (a): trace every named cell as rank 0 on fake CUDA
     tensors (the chip host's CPU does the work), and both engine
-    variants; one line per cell."""
+    variants; one line per cell, its collectives per mesh dim and the
+    ops whose operands DTensor redistributed, and a train step's
+    parameter gradients against their shards."""
     from repro_torch.launch.dryrun import trace_cell
     from repro_torch.launch.engine_dryrun import lower_variant
     cells = {}
@@ -2311,10 +2330,14 @@ def dryrun_table(torch, smi):
             f"grad_accum {rec['grad_accum']}, traced (layers, "
             f"microbatches) {rec['traced']} in {rec['compile_s']:.1f} s"
             f" | {smi}")
+        log(f"dryrun {arch} {shape} {rec['mesh']}: collective bytes per "
+            f"mesh dim {r['coll_bytes_by_dim']}, counts {r['coll_counts']}")
         for op, kinds in rec["redistributed_ops"].items():
             log(f"dryrun {arch} {shape} {rec['mesh']}: DTensor "
                 f"redistributed the operands of {op}: " + ", ".join(
                     f"{k} {v / 1e9:.3f} GB" for k, v in kinds.items()))
+        check_grads(f"dryrun {arch} {shape} {rec['mesh']}",
+                    rec["grad_blocks"])
         rec.pop("top_ops")
         cells[f"{arch}/{shape}/{rec['mesh']}"] = rec
     for variant in ("baseline", "windowed"):
@@ -2475,7 +2498,7 @@ def qwen_rank0(torch, smi, cells):
     train_4k GB against its one-pod GB (``POD_RATIO_LIMIT``)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
-    from repro_torch.launch.dryrun import build_step, cell_config
+    from repro_torch.launch.dryrun import GradBlocks, build_step, cell_config
     from repro_torch.launch.mesh import PRODUCTION, fake_mesh, mesh_name
     from repro_torch.sharding.rules import default_rules, use_rules
     out = {}
@@ -2496,7 +2519,8 @@ def qwen_rank0(torch, smi, cells):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
-            with use_rules(mesh, rules), implicit_replication():
+            with use_rules(mesh, rules), implicit_replication(), \
+                    GradBlocks(model) as grads:
                 start.record()
                 result = step(*args)
                 end.record()
@@ -2505,11 +2529,12 @@ def qwen_rank0(torch, smi, cells):
             ms = start.elapsed_time(end)
             peak = (torch.cuda.max_memory_allocated() - base) / 1e9
             del model, step, args, result
+        blocks = grads.record()
         want = rec["roofline"]["memory_per_device_gb"]
         ratio = peak / want
         out[f"{shape_name}/{name}"] = dict(
             ms=ms, wall_s=wall, peak_gb=peak, dryrun_gb=want, ratio=ratio,
-            limits=MEM_RATIO_LIMITS)
+            limits=MEM_RATIO_LIMITS, grad_blocks=blocks)
         log(f"qwen2-1.5b rank 0 {shape_name} {name} on the card: "
             f"{ms:.1f} ms (host {wall:.2f} s), peak {peak:.3f} GB against "
             f"the dry-run's {want:.3f} GB per device (ratio {ratio:.3f}, "
@@ -2518,6 +2543,8 @@ def qwen_rank0(torch, smi, cells):
             f"{(rec['roofline']['memory_s'] + rec['roofline']['compute_s']) * 1e3:.1f}"
             f" ms | {smi}")
         torch.cuda.empty_cache()
+        check_grads(f"qwen2-1.5b rank 0 {shape_name} {name} on the card",
+                    blocks)
         if not MEM_RATIO_LIMITS[0] <= ratio <= MEM_RATIO_LIMITS[1]:
             raise SmokeFailure(f"qwen2-1.5b rank 0 {shape_name} {name}: "
                                f"peak {peak:.3f} GB is {ratio:.3f} x the "

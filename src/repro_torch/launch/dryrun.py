@@ -18,7 +18,10 @@ reference's keys under ``artifacts/dryrun/``: ``memory_analysis`` holds
 rank 0's argument bytes (its shards of the parameters and of the
 optimizer state, batch or cache), output bytes (what the step returns that it did not
 get) and temp bytes (the peak of the step's own allocations, less the
-outputs); ``cost_analysis`` and ``roofline`` come from the counter.
+outputs); ``cost_analysis`` and ``roofline`` come from the counter;
+``grad_blocks`` (train steps) the largest parameter gradient rank 0
+holds and every one held above the shard its rules give
+(``GradBlocks``).
 
 Run as ``python -m repro_torch.launch.dryrun [--arch A] [--shape S]
 [--multi-pod | --both-meshes] [--mini] [--device cpu] [--out DIR]``.
@@ -88,6 +91,63 @@ def _storage_bytes(tensors) -> int:
 
 def _leaves(x):
     return torch.utils._pytree.tree_flatten(x)[0]
+
+
+class GradBlocks:
+    """Each parameter's gradient as rank 0 holds it when autograd
+    accumulates it into ``.grad`` (before the step's ZeRO constraint),
+    against the parameter's own shard, which the rules place: under
+    ``with GradBlocks(model) as gb:`` a hook per parameter records the
+    most bytes its local gradient held, its placements and the mesh
+    dims on which it is not sharded as its parameter is, where it is
+    *above* its shard (replicated there, or a partial sum). The hooks
+    and the parameters are dropped on exit: only names and numbers are
+    kept."""
+
+    def __init__(self, model: torch.nn.Module) -> None:
+        self.params = dict(model.named_parameters())
+        self.held: Dict[str, Dict] = {}
+        self._handles: list = []
+
+    @staticmethod
+    def _local(t: torch.Tensor) -> torch.Tensor:
+        return getattr(t, "_local_tensor", t)
+
+    def _hook(self, name: str, p: torch.Tensor) -> None:
+        g = self._local(p.grad)
+        nbytes = g.numel() * g.element_size()
+        if name in self.held and nbytes < self.held[name]["bytes"]:
+            return
+        got = tuple(getattr(p.grad, "placements", ()))
+        above = [dim for dim, want, have in zip(
+            p.device_mesh.mesh_dim_names, p.placements, got, strict=True)
+            if want.is_shard() and have != want] if got else []
+        self.held[name] = dict(
+            leaf=name, bytes=nbytes,
+            shard_bytes=self._local(p).numel() * g.element_size(),
+            placements=[str(q) for q in got], above=above)
+
+    def __enter__(self) -> "GradBlocks":
+        self._handles = [p.register_post_accumulate_grad_hook(
+            lambda p, n=n: self._hook(n, p))
+            for n, p in self.params.items() if p.requires_grad]
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for h in self._handles:
+            h.remove()
+        self._handles, self.params = [], {}
+
+    def record(self) -> Optional[Dict]:
+        """``None`` when no gradient was formed (an inference step);
+        else the largest block (``leaf``, ``bytes``, ``shard_bytes``: the
+        parameter's shard at the gradient's dtype, ``placements``) and
+        every leaf held above its shard (``above_shard``)."""
+        if not self.held:
+            return None
+        rows = sorted(self.held.values(), key=lambda r: -r["bytes"])
+        return dict(largest=rows[0],
+                    above_shard=[r for r in rows if r["above"]])
 
 
 def cell_config(arch_name: str, shape_name: str, mini: bool):
@@ -165,9 +225,10 @@ def _trace(cfg, shape, multi_pod: bool, mini: bool, dev, kind: str,
             t_build = time.time() - t0
             counter = RL.CostCounter(RL.group_names(mesh))
             t0 = time.time()
-            _, arg_b, out_b, temp_b = run_step(
-                step, args, mesh, rules, counter,
-                held=list(model.parameters()))
+            with GradBlocks(model) as grads:
+                _, arg_b, out_b, temp_b = run_step(
+                    step, args, mesh, rules, counter,
+                    held=list(model.parameters()))
             t_trace = time.time() - t0
         chips = mesh.size()
     return dict(flops=counter.flops, bytes=counter.bytes,
@@ -177,7 +238,7 @@ def _trace(cfg, shape, multi_pod: bool, mini: bool, dev, kind: str,
                 chips=chips, grad_accum=grad_accum,
                 redistributed={op: dict(kinds) for op, kinds in
                                counter.coll_by_op.items()},
-                top_ops=counter.explain())
+                top_ops=counter.explain(), grads=grads.record())
 
 
 def _extrapolate(points: Dict, depth: int, accum: int):
@@ -224,7 +285,8 @@ def _extrapolate(points: Dict, depth: int, accum: int):
     out.update(t_build=sum(p["t_build"] for p in points.values()),
                t_trace=sum(p["t_trace"] for p in points.values()),
                chips=last["chips"], grad_accum=accum,
-               redistributed=last["redistributed"], top_ops=last["top_ops"])
+               redistributed=last["redistributed"], top_ops=last["top_ops"],
+               grads=last.get("grads"))
     return out
 
 
@@ -298,6 +360,7 @@ def trace_cell(arch_name: str, shape_name: str, multi_pod: bool,
             op: kinds for op, kinds in raw["redistributed"].items()
             if sum(kinds.values()) >= REDISTRIBUTED_MIN_BYTES},
         "top_ops": raw["top_ops"],
+        "grad_blocks": raw["grads"],
     }
 
 
@@ -315,6 +378,18 @@ def format_record(rec: Dict) -> str:
             f"mem={r['memory_per_device_gb']:.3f}GB/device "
             f"compute={r['compute_s']:.4f}s memory={r['memory_s']:.4f}s "
             f"coll={r['collective_s']:.4f}s dominant={r['dominant']}")
+
+
+def format_grads(blocks: Dict) -> str:
+    """One line for a record's ``grad_blocks``."""
+    big = blocks["largest"]
+    above = ", ".join(f"{r['leaf']} {r['bytes']} B (shard {r['shard_bytes']}"
+                      f" B, {r['placements']})"
+                      for r in blocks["above_shard"])
+    return (f"largest parameter gradient {big['leaf']} {big['bytes']} B per "
+            f"rank (rules' shard {big['shard_bytes']} B, {big['placements']});"
+            f" {len(blocks['above_shard'])} above their shard"
+            + (f": {above}" if above else ", every leaf at its rules' shard"))
 
 
 def main(argv=None) -> int:
@@ -361,6 +436,9 @@ def main(argv=None) -> int:
                 with open(out_path, "w") as f:
                     json.dump(rec, f, indent=1)
                 print("  ok: " + format_record(rec), flush=True)
+                if rec["grad_blocks"]:
+                    print("  " + format_grads(rec["grad_blocks"]),
+                          flush=True)
                 for op, kinds in rec["redistributed_ops"].items():
                     print(f"  redistributed for {op}: " + ", ".join(
                         f"{k} {v / 1e6:.1f} MB" for k, v in kinds.items()),

@@ -12,7 +12,10 @@ launchers donate them. The prefill and serve steps take no ``params``.
 ZeRO-shards the gradients over the data axis of a mesh through
 ``sharding.rules.constrain``, as the reference's does: under active
 rules a ``DTensor`` gradient that is a partial sum over the data axis is
-reduce-scattered there, and without rules the constraint is a no-op.
+reduce-scattered there, and without rules the constraint is a no-op. A
+parameter the rules shard over the data axis themselves has its
+gradient reduce-scattered in the backward already
+(``sharding.rules.sharded_param_grads``).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 
 from ..models.model import Model
-from ..sharding.rules import constrain
+from ..sharding.rules import constrain, sharded_param_grads
 from ..train.optimizer import AdamW, apply_updates
 
 Batch = Mapping[str, torch.Tensor]
@@ -91,7 +94,8 @@ def make_train_step(model: Model, optimizer: AdamW,
         _check_params(model, params)
         if grad_accum <= 1:
             loss, metrics = model.loss(**batch)
-            loss.backward()
+            with sharded_param_grads(params.values()):
+                loss.backward()
         else:
             # under a mesh the batch is gathered, split and each
             # microbatch sharded again (its rows on every data rank)
@@ -103,7 +107,8 @@ def make_train_step(model: Model, optimizer: AdamW,
                 mb_loss, metrics = model.loss(
                     **{k: constrain(v[i], *BATCH_AXES[k])
                        for k, v in micro.items()})
-                mb_loss.backward()
+                with sharded_param_grads(params.values()):
+                    mb_loss.backward()
                 loss = loss + mb_loss.detach()
             inv = 1.0 / grad_accum
             with torch.no_grad():
@@ -129,7 +134,8 @@ def make_grad_step(model: Model) -> Callable:
     def grad_step(params, batch: Batch):
         _check_params(model, params)
         loss, metrics = model.loss(**batch)
-        loss.backward()
+        with sharded_param_grads(params.values()):
+            loss.backward()
         return _take_grads(params), {
             "loss": loss.detach(),
             **{k: v.detach() for k, v in metrics.items()}}

@@ -366,13 +366,22 @@ class Attention(nn.Module):
                     q[:, lo:lo + chunk], ka, va,
                     lambda sc, q_pos=q_pos: self._probs(sc, q_pos, pos)))
             out = torch.cat(outs, dim=1)
-        return out @ self.wo, (k, v)
+        return self._project_out(out), (k, v)
+
+    def _project_out(self, out: torch.Tensor) -> torch.Tensor:
+        """``out @ wo``, with ``out`` (B, S, Hq*hd) constrained as
+        ``wo``'s rows are sharded: where the heads were gathered (they
+        do not divide the model axis) the features still split evenly,
+        and ``wo``'s gradient, ``out^T @ grad``, is then formed as the
+        rules shard ``wo`` rather than replicated over the model
+        axis."""
+        return constrain(out, "batch", "seq", "act_heads") @ self.wo
 
     def cross(self, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         """Encoder-decoder cross-attention: queries from x (B,Sq,d), keys
         and values from enc_out (B,Sk,d). No rotation, no mask."""
         q, k, v = self._heads(x, enc_out.to(x.dtype))
-        return attend(q, k, v, softmax) @ self.wo
+        return self._project_out(attend(q, k, v, softmax))
 
     def decode(self, x: torch.Tensor, state, pos: int) -> torch.Tensor:
         """One-token decode: x (B,1,d); ``state`` this layer's

@@ -105,7 +105,13 @@ def _ssm_inputs(m: Mamba, x: torch.Tensor, cfg: ArchConfig):
     dt: (B,S,din); b, c: (B,S,N)."""
     n = cfg.ssm_state_dim
     s = x.shape[1]
-    u_raw, gate = (x @ m.in_proj).chunk(2, dim=-1)
+    # under a mesh the split gathers the channel-sharded projection:
+    # each half is constrained back to its channels, so the conv, the
+    # scan and the gate run on each rank's own, and the projection's
+    # gradient is split again before ``in_proj``'s is formed from it
+    xz = constrain(x @ m.in_proj, "batch", "seq", "ssm_inner")
+    u_raw, gate = (constrain(t, "batch", "seq", "ssm_inner")
+                   for t in xz.chunk(2, dim=-1))
     if isinstance(u_raw, DTensor):              # per row and channel
         u = shard_local(_causal_conv, u_raw, (0, 2),
                         [(0, 2), (None, 1), (None, 0)],

@@ -27,7 +27,7 @@ from ..kernels.ops import resolve_device
 from ..sharding.rules import constrain, local_inputs
 from .layers import Attention, Embeddings, empty_param, init_parameters, \
     rms_norm
-from .transformer import Block, Cache, Stack, remat
+from .transformer import Block, Cache, Stack, normed, remat, residual
 
 # Weight of the MoE load-balancing loss in the training objective.
 MOE_AUX_COEF = 0.01
@@ -66,7 +66,8 @@ class CrossBlock(nn.Module):
         self.norm = empty_param(cfg.d_model, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
-        return x + self.attn.cross(rms_norm(self.norm, x, self.eps), enc_out)
+        return residual(x, self.attn.cross(normed(self.norm, x, self.eps),
+                                           enc_out))
 
 
 def positions_like(x: torch.Tensor) -> torch.Tensor:
@@ -222,7 +223,7 @@ class Model(nn.Module):
                     aux = aux + a
         else:
             x, aux = self.stack(x, positions)
-        return rms_norm(self.norm_f, x, self.cfg.norm_eps), aux
+        return normed(self.norm_f, x, self.cfg.norm_eps), aux
 
     def forward(self, tokens: torch.Tensor,
                 enc_input: Optional[torch.Tensor] = None

@@ -6,9 +6,9 @@ The reference stacks each block-period position's parameters along a
 leading ``num_periods`` axis and scans over periods; here the stack is an
 ``nn.ModuleList`` of layers in the reference's layer order (layer ``i``
 is period ``i // plen``, position ``i % plen``) and a loop over it. Its
-sharding constraints (``sharding.rules.constrain`` after each residual
-add) redistribute a ``DTensor`` under active rules and are no-ops
-otherwise.
+sharding constraints (``sharding.rules.constrain`` on each branch
+output, residual sum and normed input) redistribute a ``DTensor`` and
+its gradient under active rules and are no-ops otherwise.
 ``remat`` wraps each block period in ``torch.utils.checkpoint`` as the
 reference wraps its scan body in ``jax.checkpoint``: ``"full"`` recomputes
 the period in the backward pass, ``"dots"`` saves the matmul outputs and
@@ -68,6 +68,29 @@ def remat(policy: str, fn, *args):
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
+def act(x: torch.Tensor) -> torch.Tensor:
+    """``x (B, S, d)`` constrained to the activations' layout."""
+    return constrain(x, "batch", "seq", "act_embed")
+
+
+def residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``x + h``, constrained. Under a mesh the branch ``h`` is reduced
+    before the add, as GSPMD reduces a contraction's partial sum at the
+    dot that forms it: DTensor would add the residual into one rank's
+    share and reduce later, rounding apart from the reference."""
+    return act(x + act(h))
+
+
+def normed(scale: torch.Tensor, x: torch.Tensor, eps: float
+           ) -> torch.Tensor:
+    """``rms_norm(scale, x)``, constrained: in the backward the
+    constraint reduces the branch's input gradient (a partial sum over
+    the model axis, from the projections' transposed dots) before the
+    norm's backward, where GSPMD reduces it, rather than wherever
+    DTensor's cost model would."""
+    return act(rms_norm(scale, x, eps))
+
+
 class Block(nn.Module):
     """Pre-norm residual block: ``x + mixer(norm1(x))``, then
     ``x + ffn(norm2(x))``. The mixer is attention, Mamba or RWKV
@@ -102,9 +125,9 @@ class Block(nn.Module):
         """Full-sequence block. Returns ``(x, moe_aux)``, the aux loss
         ``None`` without an MoE FFN. With ``cache`` (prefill) it also
         writes this layer's decode state into its slot."""
-        h, state = self.mixer(rms_norm(self.norm1, x, self.eps), positions)
-        x = constrain(x + h, "batch", "seq", "act_embed")
-        h = rms_norm(self.norm2, x, self.eps)
+        h, state = self.mixer(normed(self.norm1, x, self.eps), positions)
+        x = residual(x, h)
+        h = normed(self.norm2, x, self.eps)
         if cache is not None:
             # attention fills the first S positions of its max_seq; every
             # other state fills its slot whole
@@ -114,8 +137,8 @@ class Block(nn.Module):
                 cache["shift_c"][self.slot] = h[:, -1:]
         if self.is_moe:
             h, aux = self.ffn(h)
-            return constrain(x + h, "batch", "seq", "act_embed"), aux
-        return constrain(x + self.ffn(h), "batch", "seq", "act_embed"), None
+            return residual(x, h), aux
+        return residual(x, self.ffn(h)), None
 
     def decode(self, x: torch.Tensor, cache: Cache, pos: int
                ) -> torch.Tensor:

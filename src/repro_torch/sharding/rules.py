@@ -4,9 +4,11 @@ counterpart of ``repro.sharding.rules``).
 Parameters and activations are annotated with *logical* axis names
 ("embed", "ff", "heads", "experts", "batch", ...). A rule set maps
 logical names to mesh axes; ``constrain`` redistributes a ``DTensor``
-to the placements the rules give when a rule set is active, and is a
-no-op otherwise (single-device runs never touch the mesh machinery:
-a plain tensor comes back as it is).
+to the placements the rules give when a rule set is active, and its
+gradient to the same placements (the transpose of JAX's sharding
+constraint is that constraint), and is a no-op otherwise (single-device
+runs never touch the mesh machinery: a plain tensor comes back as it
+is).
 
 Default rules implement the production layout:
   batch        -> (pod, data)   [DP across pods and the data axis]
@@ -24,6 +26,7 @@ mesh axis named in entry ``i`` gets ``Shard(i)``, every other axis
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -155,21 +158,86 @@ def placements_for(spec: Spec, mesh) -> Tuple[Placement, ...]:
     return tuple(out)
 
 
+class _ConstrainGrad(torch.autograd.Function):
+    """Identity whose backward redistributes the gradient to the
+    placements given at forward time (a partial sum reduced, an axis
+    the rules shard split): the transpose of a sharding constraint is
+    the same constraint. The mesh and placements travel in ``ctx``, not
+    through ``active()``: autograd may run the backward, or recompute a
+    checkpointed period, in its own thread."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements), None, None
+
+
 def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     """Apply a logical sharding constraint if rules are active.
 
     ``x`` itself comes back when no rules are active or ``x`` is not a
     ``DTensor``; otherwise ``x`` redistributed to the guarded spec's
-    placements (a partial sum is reduced on the way)."""
+    placements (a partial sum is reduced on the way). Where autograd
+    records, the gradient flowing back through the constraint is
+    redistributed to the same placements, as JAX transposes
+    ``with_sharding_constraint``, before the redistribution's own
+    backward takes it to ``x``'s: otherwise DTensor places every
+    backward op by its own cost model."""
     ctx = active()
     if ctx is None or not isinstance(x, DTensor):
         return x
     mesh, rules = ctx
     spec = guard(spec_for(axes, rules), x.shape, mesh)
     placements = placements_for(spec, mesh)
-    if tuple(x.placements) == placements:
-        return x
-    return x.redistribute(mesh, placements)
+    y = x if tuple(x.placements) == placements else \
+        x.redistribute(mesh, placements)
+    if not (torch.is_grad_enabled() and y.requires_grad):
+        return y
+    return _ConstrainGrad.apply(y, mesh, placements)
+
+
+def _reduce_scatter_grad(mesh, placements, dims, grad):
+    got = list(grad.placements)
+    if not any(got[i].is_partial() for i in dims):
+        return None
+    for i in dims:
+        if got[i].is_partial():
+            got[i] = placements[i]
+    return grad.redistribute(mesh, tuple(got))
+
+
+@contextlib.contextmanager
+def sharded_param_grads(params):
+    """Under active rules, each ``DTensor`` parameter that the rules
+    shard over a mesh dim ``"batch"`` maps to (jamba's ``embed ->
+    data``) gets each gradient contribution that is a partial sum there
+    reduce-scattered to its shard before autograd accumulates it into
+    ``.grad``, as GSPMD does in the backward of such a layout: it would
+    otherwise stay whole along that dim until the step's ZeRO
+    constraint. A no-op without rules and for plain tensors."""
+    ctx = active()
+    handles = []
+    if ctx is not None:
+        batch = _names(ctx[1].get("batch") or ())
+        for p in params:
+            if not (isinstance(p, DTensor) and p.requires_grad):
+                continue
+            dims = [i for i, (name, q) in enumerate(zip(
+                p.device_mesh.mesh_dim_names, p.placements, strict=True))
+                if name in batch and q.is_shard()]
+            if dims:
+                handles.append(p.register_hook(functools.partial(
+                    _reduce_scatter_grad, p.device_mesh,
+                    tuple(p.placements), dims)))
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def zeros(shape: Sequence[int], *axes: Optional[str],

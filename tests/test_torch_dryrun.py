@@ -38,6 +38,18 @@ def _dryrun(args, out, timeout=300):
         cwd=ROOT)
 
 
+def _check_grads(rec):
+    """A train step's record names its largest parameter gradient, and
+    none is held above the shard its rules give (jamba's data-sharded
+    parameters included); an inference step forms none."""
+    blocks = rec["grad_blocks"]
+    if rec["kind"] != "train":
+        assert blocks is None
+        return
+    assert blocks["largest"]["bytes"] > 0 and blocks["largest"]["leaf"]
+    assert blocks["above_shard"] == [], blocks["above_shard"]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_mini_dryrun_single_pod(arch, tmp_path):
     r = _dryrun(["--arch", arch], tmp_path)
@@ -53,6 +65,7 @@ def test_mini_dryrun_single_pod(arch, tmp_path):
         assert roof["flops_per_chip"] > 0 and roof["bytes_per_chip"] > 0
         assert rec["memory_analysis"]["argument_size_gb"] > 0
         assert roof["dominant"] in ("compute", "memory", "collective")
+        _check_grads(rec)
     skips = json.loads((tmp_path / "skips.json").read_text())
     assert {s["arch"] for s in skips} >= {"qwen2-1.5b"}
 
@@ -71,6 +84,7 @@ def test_mini_dryrun_multi_pod(tmp_path):
     # the batch is sharded over pod and data: its gradients are reduced
     # over both, the pod's over InfiniBand
     assert set(rec["roofline"]["coll_bytes_by_dim"]) >= {"pod", "data"}
+    _check_grads(rec)
 
 
 def test_dryrun_needs_a_card_unless_asked(tmp_path):
@@ -82,3 +96,25 @@ def test_dryrun_needs_a_card_unless_asked(tmp_path):
          str(tmp_path)], capture_output=True, text=True, timeout=300,
         env=_env(), cwd=ROOT)
     assert r.returncode == 1 and "device='cpu'" in r.stdout
+
+
+def test_grad_blocks_hold_no_parameter_after_exit():
+    """``GradBlocks`` records each gradient's bytes against its
+    parameter's, and keeps no parameter alive once its block exits: a
+    model deleted after the step is freed (rank 0's real runs measure
+    each cell's peak from what the previous cells left)."""
+    import gc
+    import weakref
+
+    from repro_torch.launch.dryrun import GradBlocks
+    model = torch.nn.Linear(4, 3)
+    ref = weakref.ref(model.weight)
+    with GradBlocks(model) as grads:
+        model(torch.ones(2, 4)).sum().backward()
+    del model
+    gc.collect()
+    assert ref() is None
+    rec = grads.record()
+    assert rec["largest"] == dict(leaf="weight", bytes=48, shard_bytes=48,
+                                  placements=[], above=[])
+    assert rec["above_shard"] == []

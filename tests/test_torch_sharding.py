@@ -475,6 +475,13 @@ try:
                                                       "targets": tgt})
             for n, g in grads.items():
                 res[arch + "/g/" + n] = g.full_tensor().numpy()
+                # where each gradient lies, beside the rules' shard
+                res[arch + "/gpl/" + n] = np.array([str(q)
+                                                    for q in g.placements])
+                res[arch + "/gshape/" + n] = np.array(g.to_local().shape)
+                res[arch + "/rpl/" + n] = np.array([str(q) for q in pl[n]])
+                res[arch + "/rshape/" + n] = np.array(
+                    params[n].to_local().shape)
             step = make_train_step(model, AdamW(constant_lr(1e-3)),
                                    grad_axes=axes)
             _, _, m = step(params, AdamWState(step0, zeros(), zeros()),
@@ -576,3 +583,325 @@ def test_sharded_step_equals_one_process(arch, mesh, sharded_results):
         _close(got, want, decided)
         assert np.abs(got - before[n])[~decided].max(initial=0.0) <= \
             2 * LR * (1 + 0.1) + 1e-6
+
+
+@pytest.mark.parametrize("arch,mesh", [
+    pytest.param(arch, mesh, id=arch if mesh == "2x2" else f"{arch}-{mesh}")
+    for mesh in PARITY_MESHES for arch in PARITY_ARCHS])
+def test_sharded_grads_keep_the_rules_shards(arch, mesh, sharded_results):
+    """Every parameter gradient of ``make_grad_step`` (before any ZeRO
+    constraint) is sharded as its parameter on each mesh dim the rules
+    shard it on, never replicated there, and its local block is the
+    parameter's shard."""
+    res = sharded_results(mesh)
+    names = [k.split("/gpl/", 1)[1] for k in res
+             if k.startswith(arch + "/gpl/")]
+    assert names
+    for n in names:
+        got = [str(q) for q in res[f"{arch}/gpl/{n}"]]
+        want = [str(q) for q in res[f"{arch}/rpl/{n}"]]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            if w.startswith("S("):
+                assert g == w, (n, got, want)
+        assert list(res[f"{arch}/gshape/{n}"]) == \
+            list(res[f"{arch}/rshape/{n}"]), n
+
+
+# -- the constraint's backward (gloo, 4 processes as a (2, 2) mesh) ---------------
+
+_CONSTRAIN_WORKER = r"""
+import contextlib
+import json
+import sys
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs.base import get_arch, reduced_for_smoke
+from repro_torch.launch.specs import shard_model
+from repro_torch.models.axes import param_axes
+from repro_torch.models.model import build_model, positions_like
+from repro_torch.sharding.rules import (constrain, default_rules,
+                                        param_shardings, sharded_param_grads,
+                                        use_rules)
+
+rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=init, world_size=4, rank=rank)
+try:
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    rules = default_rules()
+    res = {}
+    # the whole of x and of the incoming gradient, equal on every rank
+    x_full = torch.arange(24, dtype=torch.float32).reshape(4, 6) - 7.0
+    g_full = (torch.arange(24, dtype=torch.float32).reshape(4, 6) * 3.0
+              - 20.0)
+    # a DTensor with placements pl whose whole is t: over a Partial mesh
+    # dim the two ranks hold 1/4 and 3/4 of their shard (the sum is exact)
+    def place(t, pl):
+        local = distribute_tensor(t, mesh, [Replicate() if p.is_partial()
+                                            else p for p in pl]).to_local()
+        for i, p in enumerate(pl):
+            if p.is_partial():
+                local = local * (0.25, 0.75)[mesh.get_local_rank(i)]
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    cases = {
+        # the forward is a no-op: x already has the rules' placements
+        "noop-partial": ((Shard(0), Shard(1)), (Partial(), Partial())),
+        "noop-replicated": ((Shard(0), Shard(1)), (Shard(0), Replicate())),
+        # the forward redistributes x
+        "redistribute-partial": ((Replicate(), Replicate()),
+                                 (Partial(), Partial())),
+        "redistribute-transposed": ((Shard(1), Shard(0)),
+                                    (Replicate(), Shard(0))),
+        # a partial sum reduced by the forward
+        "partial-input": ((Partial(), Partial()), (Partial(), Replicate())),
+    }
+    with use_rules(mesh, rules):
+        for name, (x_pl, g_pl) in cases.items():
+            leaf = place(x_full, x_pl).detach().requires_grad_(True)
+            x = leaf * 1.0 if name == "partial-input" else leaf
+            y = constrain(x, "batch", "ff")
+            seen = {}
+            if y.grad_fn is not None:
+                # what the output's node passes back toward x
+                y.grad_fn.register_hook(
+                    lambda gi, go, seen=seen: seen.update(node=gi[0]))
+            y.backward(place(g_full, g_pl))
+            node = seen.get("node", leaf.grad)
+            res[name] = dict(
+                out=[str(p) for p in y.placements],
+                grad_fn=type(y.grad_fn).__name__,
+                node=[str(p) for p in node.placements],
+                node_full=node.full_tensor().tolist(),
+                leaf=[str(p) for p in leaf.grad.placements],
+                leaf_full=leaf.grad.full_tensor().tolist(),
+                want=g_full.tolist())
+    # no rules, or a plain tensor: x itself, no node
+    xd = distribute_tensor(x_full, mesh, (Shard(0), Replicate())) \
+        .requires_grad_(True)
+    xp = x_full.clone().requires_grad_(True)
+    plain = constrain(xd, "batch", "ff") is xd
+    with use_rules(mesh, rules):
+        plain = plain and constrain(xp, "batch", "ff") is xp
+        with torch.no_grad():
+            plain = plain and constrain(xd, "batch", None) is xd
+    res["plain"] = plain and xd.grad_fn is None and xp.grad_fn is None
+
+    # a parameter the rules shard over data (jamba's embed -> data), its
+    # gradient a partial sum over data: reduce-scattered to its shard
+    # before it accumulates, two backwards as two microbatches
+    w_full = torch.arange(48, dtype=torch.float32).reshape(6, 8) / 8 - 2.5
+    dy_full = [torch.arange(32, dtype=torch.float32).reshape(4, 8) - k
+               for k in (9.0, 4.0)]
+    for name, rs in (("hooked", dict(rules, embed="data")), ("bare", None)):
+        w = distribute_tensor(w_full, mesh, (Shard(0), Replicate())) \
+            .requires_grad_(True)
+        with contextlib.ExitStack() as stack:
+            if rs is not None:
+                stack.enter_context(use_rules(mesh, rs))
+            stack.enter_context(sharded_param_grads([w]))
+            seen = []
+            w.register_post_accumulate_grad_hook(
+                lambda p: seen.append([str(q) for q in p.grad.placements]))
+            for dy in dy_full:
+                xd = distribute_tensor(x_full, mesh, (Shard(0), Replicate()))
+                (xd @ w).backward(distribute_tensor(
+                    dy, mesh, (Shard(0), Replicate())))
+        res[f"param-{name}"] = dict(seen=seen, full=w.grad.full_tensor()
+                                    .tolist())
+
+    # one qwen2 decoder block's parameter gradients
+    cfg = reduced_for_smoke(get_arch("qwen2-1.5b"))
+    block = build_model(cfg, device="cpu").stack.layers[0]
+    r = dict(rules, **dict(cfg.sharding_overrides))
+    axes = param_axes(block)
+    params = dict(block.named_parameters())
+    pl = param_shardings(axes, mesh, r, {n: tuple(p.shape)
+                                         for n, p in params.items()})
+    shard_model(block, {n: distribute_tensor(p.detach(), mesh, pl[n])
+                        for n, p in params.items()})
+    block.requires_grad_(True)
+    gen = torch.Generator().manual_seed(0)
+    h = distribute_tensor(torch.randn(4, 16, cfg.d_model, generator=gen),
+                          mesh, (Shard(0), Replicate()))
+    with use_rules(mesh, r), implicit_replication():
+        y, _ = block(h, positions_like(h))
+        (y.float() ** 2).sum().backward()
+    res["block"] = {
+        n: dict(grad=[str(q) for q in p.grad.placements],
+                rules=[str(q) for q in p.placements],
+                local=list(p.grad.to_local().shape),
+                shard=list(p.to_local().shape),
+                dims={a: [q.dim] if q.is_shard() else []
+                      for a, q in zip(mesh.mesh_dim_names,
+                                      p.grad.placements)})
+        for n, p in block.named_parameters()}
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+finally:
+    dist.destroy_process_group()
+"""
+
+# (x's placements, the incoming gradient's placements): the forward is
+# a no-op (x already as the rules place it) or redistributes x, and the
+# gradient arrives as a partial sum, replicated where the rules shard,
+# or sharded on the other dim
+CONSTRAIN_CASES = ["noop-partial", "noop-replicated", "redistribute-partial",
+                   "redistribute-transposed", "partial-input"]
+# what redistribute's own backward leaves on x: its placements, a
+# partial sum taken as replicated
+LEAF_PLACEMENTS = {"noop-partial": ["S(0)", "S(1)"],
+                   "noop-replicated": ["S(0)", "S(1)"],
+                   "redistribute-partial": ["R", "R"],
+                   "redistribute-transposed": ["S(1)", "S(0)"],
+                   "partial-input": ["R", "R"]}
+
+
+@pytest.fixture(scope="module")
+def constrain_results(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("constrain")
+    out = tmp / "rank0.json"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _CONSTRAIN_WORKER, str(r),
+         f"file://{tmp}/pg", str(out)], env=_env(), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(4)]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(
+        e[-3000:] for e in errs)
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("case", CONSTRAIN_CASES)
+def test_constrain_backward_places_the_gradient(case, constrain_results):
+    """``constrain(x, "batch", "ff")`` on a (4, 6) DTensor: the output
+    has the rules' placements, and the gradient the constraint passes
+    back to its input has them too (a partial sum reduced, the dim the
+    rules shard split), whether the forward redistributed or not; the
+    whole gradient equals the plain tensor's."""
+    r = constrain_results[case]
+    want_pl = ["S(0)", "S(1)"]
+    assert r["out"] == want_pl
+    assert r["grad_fn"] == "_ConstrainGradBackward"
+    assert r["node"] == want_pl
+    assert r["leaf"] == LEAF_PLACEMENTS[case]
+    x = (torch.arange(24, dtype=torch.float32).reshape(4, 6) - 7.0) \
+        .requires_grad_(True)
+    g = torch.arange(24, dtype=torch.float32).reshape(4, 6) * 3.0 - 20.0
+    y = TR.constrain(x, "batch", "ff")
+    assert y is x
+    y.backward(g)
+    assert r["want"] == x.grad.tolist()
+    assert r["node_full"] == x.grad.tolist()
+    assert r["leaf_full"] == x.grad.tolist()
+
+
+def test_constrain_adds_no_node_without_rules_or_dtensor(constrain_results):
+    """A DTensor without rules, a plain tensor under rules and a DTensor
+    under ``no_grad`` come back as themselves, with no autograd node."""
+    assert constrain_results["plain"] is True
+
+
+def test_data_sharded_param_grads_are_reduce_scattered(constrain_results):
+    """``sharded_param_grads``: a parameter the rules shard over ``data``
+    (as ``embed -> data`` does) gets each microbatch's gradient, a
+    partial sum over ``data``, reduce-scattered to its own shard before
+    autograd accumulates it, and the accumulated whole equals the plain
+    tensor's; without rules the hook is not installed and the gradient
+    stays a partial sum."""
+    hooked, bare = (constrain_results[f"param-{k}"]
+                    for k in ("hooked", "bare"))
+    assert hooked["seen"] == [["S(0)", "R"]] * 2
+    assert bare["seen"] == [["P(sum)", "R"]] * 2
+    x = torch.arange(24, dtype=torch.float32).reshape(4, 6) - 7.0
+    w = (torch.arange(48, dtype=torch.float32).reshape(6, 8) / 8 - 2.5) \
+        .requires_grad_(True)
+    for k in (9.0, 4.0):
+        (x @ w).backward(torch.arange(32, dtype=torch.float32)
+                         .reshape(4, 8) - k)
+    assert hooked["full"] == w.grad.tolist()
+    assert bare["full"] == w.grad.tolist()
+
+
+# The JAX package's gradient of one qwen2 decoder block (attention and
+# FFN, no embedding lookup) compiled under its rules on a (2, 2) mesh of
+# host devices with GSPMD's (Auto) axes: for each leaf, the tensor dims
+# each mesh axis splits in the compiled gradient's output sharding.
+_REF_BLOCK = r"""
+import os, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.configs.base import ATTN, all_archs, reduced_for_smoke
+from repro.models.transformer import apply_block, init_block
+from repro.sharding.rules import default_rules, param_shardings, use_rules
+
+cfg = reduced_for_smoke(all_archs()["qwen2-1.5b"])
+mesh = Mesh(np.asarray(jax.devices()).reshape(2, 2), ("data", "model"))
+rules = default_rules()
+rules.update(dict(cfg.sharding_overrides))
+params, axes = init_block(jax.random.PRNGKey(0), cfg, ATTN, False,
+                          jnp.float32)
+b, s = 4, 16
+x = jnp.asarray(np.random.default_rng(0).normal(
+    size=(b, s, cfg.d_model)).astype(np.float32))
+pos = jnp.broadcast_to(jnp.arange(s), (b, s))
+
+def loss(p, x, pos):
+    y, _ = apply_block(p, x, cfg, ATTN, False, pos)
+    return jnp.sum(jnp.square(y.astype(jnp.float32)))
+
+rows = NamedSharding(mesh, P("data"))
+with use_rules(mesh, rules):
+    grad = jax.jit(jax.grad(loss), in_shardings=(
+        param_shardings(axes, mesh, rules, params), rows, rows))
+    compiled = grad.lower(params, x, pos).compile()
+devs = np.asarray(mesh.devices)
+out = {}
+for path, sh in jax.tree_util.tree_flatten_with_path(
+        compiled.output_shardings)[0]:
+    keys = [str(getattr(k, "key", k)) for k in path]
+    leaf = params
+    for k in keys:
+        leaf = leaf[k]
+    index = sh.devices_indices_map(leaf.shape)
+    dims = {}
+    for i, name in enumerate(mesh.axis_names):
+        other = [0] * devs.ndim
+        other[i] = 1
+        a, c = index[devs[(0,) * devs.ndim]], index[devs[tuple(other)]]
+        dims[name] = [d for d in range(leaf.ndim) if a[d] != c[d]]
+    out[".".join(keys)] = dims
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def ref_block_grads():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _REF_BLOCK], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=False, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+def test_block_grad_shardings_equal_reference(ref_block_grads,
+                                              constrain_results):
+    """One qwen2 decoder block's parameter gradients in 4 gloo processes
+    on a (2, 2) mesh: each mesh axis splits the same dims of each leaf
+    as in the reference's compiled gradient (a partial sum splits none),
+    and each local block is the parameter's shard."""
+    got = constrain_results["block"]
+    assert set(got) == set(ref_block_grads)
+    for name, r in got.items():
+        assert r["dims"] == ref_block_grads[name], name
+        assert r["local"] == r["shard"], name
