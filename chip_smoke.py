@@ -112,16 +112,17 @@ printing its own lines:
    GB, the roofline's compute, memory and collective seconds, the
    collective bytes and counts per mesh dim, and for a train step the
    largest parameter gradient rank 0 holds: no gradient may be held
-   above the shard its rules give; (b) the
+   above the shard its rules give, and no cell may need more memory per
+   device than the card has; (b) the
    engine's distributed step as rank 0 of gpu32x8 for real on the card,
    2^30 / 32 random triples: its local page and count must equal the
    single-card step's and both kernels must launch, with ms and peak
-   memory beside the dry-run's; (c) qwen2-1.5b's train_4k step as rank
-   0 of gpu32x8 and of gpu2x32x8 and its decode_32k step on gpu32x8 for
-   real, peak memory within MEM_RATIO_LIMITS of the dry-run's
-   prediction, no parameter gradient above its rules' shard, and the
-   dry-run's two-pod train_4k GB within
-   POD_RATIO_LIMIT of the one-pod GB.
+   memory beside the dry-run's; (c) qwen2-1.5b's train_4k and
+   prefill_32k steps as rank 0 of gpu32x8 and of gpu2x32x8 and its
+   decode_32k step on gpu32x8 for real, peak memory within
+   MEM_RATIO_LIMITS of the dry-run's prediction, no parameter gradient
+   above its rules' shard, and the dry-run's two-pod GB within
+   POD_RATIO_LIMIT of the one-pod GB for every shape traced on both.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -208,6 +209,17 @@ MAX_SIM_DISAGREEMENT = 0.10
 # a third of 1 / SHARDS.
 SIM_RATIO_LIMITS = {"kernel": (1 / 3, 3.0),
                     "sharded": (1 / (3 * SHARDS), 3.0)}
+# Phase 8: the host calls that issue device work, and the kernel
+# launches among them, whose device records the profiler may lose (each
+# run prints what it lost); how many times trace collection is profiled
+# while the lost launches can explain a shortfall of bind-join records;
+# and the seconds the profiler's window spans before and after the work,
+# so a device record its clock misplaces by less still falls inside.
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel")
+HOST_ISSUES = HOST_LAUNCHES + ("cudaMemcpy", "cuMemcpy", "cudaMemset",
+                               "cuMemset")
+PROFILE_ATTEMPTS = 5
+PROFILE_MARGIN_S = 0.5
 # Phase 9: the LM serving path. (a) runs the reference CLI's defaults
 # (launch/serve.py: batch 4, prompts of 4-16 tokens from default_rng(0),
 # 24 new tokens, max_seq 64); (c) a prompt above ATTN_CHUNK_THRESHOLD and
@@ -1052,7 +1064,7 @@ def chaos_arm(torch, core, data, queries, nres, resilient):
         reset_after_s=0.5)
     attempts = OutcomeTransport(
         transport.AsgiTransport(http.create_app(rtr)))
-    inner = (resilience.ResilientTransport(
+    inner = (delay_recorder(resilience)(
         attempts, resilience.RetryPolicy(**RETRY), seed=PLAN_SEED)
         if resilient else attempts)
     probe = OutcomeTransport(inner)
@@ -1108,41 +1120,98 @@ def chaos_arm(torch, core, data, queries, nres, resilient):
         requests_per_replica=snap["router"]["requests_per_replica"],
         faults=snap["faults"], launch_records=records,
         ms_per_launch_record=1e3 * wall / max(records, 1),
-        hedging=hedge_diagnosis(attempts.calls, resilience))
+        hedging=hedge_diagnosis(attempts.calls, resilience,
+                                getattr(inner, "spans", []),
+                                res["hedges"]))
     return out
 
 
-def hedge_diagnosis(calls, resilience):
+def delay_recorder(resilience):
+    """A ``ResilientTransport`` that keeps, for each ``_attempt``, its
+    start, the hedge delay its own ``_hedge_delay_s`` gave it (``None``:
+    no hedging yet), its end and whether it succeeded, in ``spans``."""
+
+    class DelayRecorder(resilience.ResilientTransport):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.spans = []
+
+        def _hedge_delay_s(self):
+            delay = super()._hedge_delay_s()
+            self.spans.append([time.perf_counter(), delay, None, False])
+            return delay
+
+        async def _attempt(self, req, remaining_s):
+            # the parent's _attempt asks for its delay before its first
+            # await, so the span it appends is this attempt's
+            n = len(self.spans)
+            try:
+                frag = await super()._attempt(req, remaining_s)
+                self.spans[n][3] = True
+                return frag
+            finally:
+                self.spans[n][2] = time.perf_counter()
+
+    return DelayRecorder
+
+
+def hedge_diagnosis(calls, resilience, spans, hedges):
     """Why the resilient arm hedged as often as it did. A
     ResilientTransport hedges an attempt still open after the p95 of
     the successful attempts that ended before it began (its last
     LATENCY_WINDOW), once ``hedge_min_samples`` of them exist; an
     attempt is cut at ``attempt_timeout_ms``. Replays that rule over
     the attempts' own spans: for each attempt cut at the timeout, how
-    many successes it could see and the hedge delay then in force."""
+    many successes it could see and the hedge delay then in force.
+    Beside it, the transport's own record (``delay_recorder``): how many
+    of its attempts outlived the delay it computed at their start, that
+    delay less the replay's rule at the same moment (the transport
+    times an attempt from before its primary task is scheduled, the
+    replay from when the call below it starts), and how many hedges it
+    fired."""
     policy = resilience.RetryPolicy(**RETRY)
     window = resilience.ResilientTransport.LATENCY_WINDOW
     start = min(t0 for t0, _, _ in calls)
     oks = sorted((t1, t1 - t0) for t0, t1, err in calls if err is None)
     cap_s = policy.attempt_timeout_ms / 1e3
+
+    def delay_at(t):
+        """(successes ended by ``t``, the replay's hedge delay then)."""
+        seen = [d for end, d in oks if end <= t][-window:]
+        if len(seen) < policy.hedge_min_samples:
+            return len(seen), None
+        ordered = sorted(seen)
+        return len(seen), ordered[min(len(ordered) - 1,
+                                      int(0.95 * len(ordered)))]
+
     cut, would_hedge = [], 0
     for t0, t1, err in calls:
-        seen = [d for end, d in oks if end <= t0][-window:]
-        delay = None
-        if len(seen) >= policy.hedge_min_samples:
-            ordered = sorted(seen)
-            delay = ordered[min(len(ordered) - 1,
-                                int(0.95 * len(ordered)))]
+        n_seen, delay = delay_at(t0)
+        if delay is not None:
             would_hedge += t1 - t0 > delay
         if err is not None and t1 - t0 >= 0.95 * cap_s:
-            cut.append(dict(start_s=t0 - start, successes_seen=len(seen),
+            cut.append(dict(start_s=t0 - start, successes_seen=n_seen,
                             hedge_delay_ms=None if delay is None
                             else 1e3 * delay, error=err))
     reached = (oks[policy.hedge_min_samples - 1][0] - start
                if len(oks) >= policy.hedge_min_samples else None)
+    timed = [(t1 - t0, d) for t0, d, t1, _ in spans if d is not None]
+    replay = [(d, delay_at(t0)[1]) for t0, d, _, _ in spans]
+    gaps = [d - r for d, r in replay if d is not None and r is not None]
     return dict(attempts=len(calls), cut=cut, would_hedge=would_hedge,
                 min_samples=policy.hedge_min_samples,
-                min_samples_reached_s=reached)
+                min_samples_reached_s=reached,
+                transport_attempts=len(spans),
+                transport_with_delay=len(timed),
+                outlived_own_delay=sum(span > d for span, d in timed),
+                own_delays_ms=[1e3 * min(d for _, d in timed),
+                               1e3 * max(d for _, d in timed)]
+                if timed else None,
+                delay_gap_ms=[1e3 * min(gaps), 1e3 * max(gaps)]
+                if gaps else None,
+                delay_presence_differs=sum((d is None) != (r is None)
+                                           for d, r in replay),
+                hedges=hedges)
 
 
 def run_edge(torch, core, data, queries, nres, counts, reset_counts):
@@ -1176,6 +1245,17 @@ def run_edge(torch, core, data, queries, nres, counts, reset_counts):
         + (f"{min(delays):.1f}-{max(delays):.1f} ms" if delays else "-")
         + f"); {h['min_samples_reached_s']}s until that many ended; "
         f"attempts the rule would hedge {h['would_hedge']}")
+    log(f"edge hedging, side by side: of the transport's "
+        f"{h['transport_attempts']} attempts, {h['transport_with_delay']} "
+        f"had a hedge delay (its own, "
+        + ("-" if h["own_delays_ms"] is None else
+           f"{h['own_delays_ms'][0]:.1f}-{h['own_delays_ms'][1]:.1f} ms")
+        + f") and {h['outlived_own_delay']} outlived it; the replay "
+        f"would hedge {h['would_hedge']}; the transport hedged "
+        f"{h['hedges']}; its delay less the replay's rule at the same "
+        f"moment: {h['delay_gap_ms']} ms (min, max), "
+        f"{h['delay_presence_differs']} attempts where only one had a "
+        "delay")
     log(f"edge launches: {r['launches']}; {r['launch_records']} "
         f"LaunchRecords, {r['ms_per_launch_record']:.3f} ms of wall time "
         "per LaunchRecord")
@@ -1276,21 +1356,34 @@ def sim_charge(torch, core, sim, data, queries, cfg, params, backend):
     bind-join kernels' profiled launches and device time. Fails unless
     the traces' CUDA launches equal the profiled launches and the
     model's stream plus cells over the device time lies within
-    SIM_RATIO_LIMITS. Returns the traces and the numbers."""
+    SIM_RATIO_LIMITS. A profile short of the traces' launches by no more
+    than the kernel launches it lost (``lost_device_records``) is taken
+    again on a fresh server, up to PROFILE_ATTEMPTS times in all.
+    Returns the traces and the numbers."""
     from torch.profiler import ProfilerActivity, profile as profiler
-    server = core.BrTPFServer(data.store, cfg)
-    torch.cuda.synchronize()
-    with profiler(activities=[ProfilerActivity.CUDA]) as prof:
-        traces = sim.collect_traces(server, queries, "brtpf",
-                                    request_budget=REQUEST_BUDGET)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        server = core.BrTPFServer(data.store, cfg)
         torch.cuda.synchronize()
-    joins = [ns for name, ns in device_events(torch, prof)
-             if "bindjoin" in name]
+        with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            traces = sim.collect_traces(server, queries, "brtpf",
+                                        request_budget=REQUEST_BUDGET)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        recs = [e for t in traces for e in t.events
+                if isinstance(e, sim.HttpRecord) and e.cand > 0]
+        cuda_launches = sum(e.cuda_launches for e in recs)
+        joins = [ns for name, ns in device_events(torch, prof)
+                 if "bindjoin" in name]
+        lost = lost_device_records(torch, prof)
+        if not 0 < cuda_launches - len(joins) <= lost["launches"]:
+            break
+        log(f"sim {backend} backend, profile {attempt} of trace collection: "
+            f"{len(joins)} bind-join device records for the traces' "
+            f"{cuda_launches} launches, and {profile_losses(lost)}; "
+            "collected again")
     device_s = sum(joins) / 1e9
     model, requests = model_kernel_s(sim, traces, params)
-    recs = [e for t in traces for e in t.events
-            if isinstance(e, sim.HttpRecord) and e.cand > 0]
-    cuda_launches = sum(e.cuda_launches for e in recs)
     records = sum(e.launches for e in recs)
     ratio = {k: (m["stream"] + m["cells"]) / max(device_s, 1e-12)
              for k, m in model.items()}
@@ -1307,18 +1400,20 @@ def sim_charge(torch, core, sim, data, queries, cfg, params, backend):
         f"({records} LaunchRecords, {cuda_launches} CUDA launches in the "
         f"traces); the card ran the bind-join kernels for "
         f"{1e3 * device_s:.3f} ms in {len(joins)} launches "
-        f"(torch.profiler); stream + cells / device time {ratio['cuda']:.3f}"
+        f"(torch.profiler, attempt {attempt}: {profile_losses(lost)}); "
+        f"stream + cells / device time {ratio['cuda']:.3f}"
         f" (limits {lo:.3f}-{hi:.3f}); the JAX package's accounting of "
         f"the same records: {ms(model['jax'])}, ratio {ratio['jax']:.3f}")
     if cuda_launches != len(joins):
         raise SmokeFailure(f"sim {backend}: the traces carry {cuda_launches} "
                            f"CUDA launches, the profiler saw {len(joins)} "
-                           "bind-join launches")
+                           f"bind-join launches ({profile_losses(lost)})")
     if not lo <= ratio["cuda"] <= hi:
         raise SmokeFailure(f"sim {backend}: the model's stream + cells over "
                            f"the kernels' device time is {ratio['cuda']:.3f}"
                            f", outside {lo:.3f}-{hi:.3f}")
-    return traces, dict(requests=requests, launch_records=records,
+    return traces, dict(profile_attempts=attempt, profile_losses=lost,
+                        requests=requests, launch_records=records,
                         cuda_launches=cuda_launches,
                         collect_launches=len(joins),
                         kernel_device_s=device_s, model_kernel_s=model,
@@ -1345,6 +1440,42 @@ def model_kernel_s(sim, traces, params):
                                      strict=True):
                     out[k][name] += sec
     return out, requests
+
+
+def lost_device_records(torch, prof):
+    """What a torch.profiler run lost: the ``HOST_ISSUES`` calls it
+    recorded on the host without a device record, by name (``calls``);
+    how many of them were kernel launches (``launches``), of how many it
+    recorded (``of``), and the place of each such launch counted from the
+    last (``from_end``); and the most ms by which its clock put a device
+    record before the call that issued it (``early_ms``). The profiler
+    matches the two by correlation id and keeps only device records
+    whose time falls inside its window; its conversion of the device
+    clock can be off (by seconds on a loaded host: kineto's "CPU GPU
+    out-of-order" and "Out-of-range" record counts), and the records it
+    drops are missing from ``device_events``."""
+    device, host = {}, []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            device[ev.correlation_id()] = ev.start_ns()
+        elif ev.name().startswith(HOST_ISSUES):
+            host.append((ev.start_ns(), ev.name(), ev.correlation_id()))
+    host.sort()
+    launches = [c for _, name, c in host if name.startswith(HOST_LAUNCHES)]
+    early = [t - device[c] for t, _, c in host if c in device]
+    from_end = [len(launches) - i for i, c in enumerate(launches)
+                if c not in device]
+    return dict(calls=dict(Counter(name for _, name, c in host
+                                   if c not in device)),
+                launches=len(from_end), of=len(launches),
+                from_end=from_end, early_ms=max([0, *early]) / 1e6)
+
+
+def profile_losses(lost):
+    return (f"{lost['launches']} of its {lost['of']} kernel launches "
+            f"without a device record, at {lost['from_end']} from the "
+            f"last; host calls without one {lost['calls']}; device records "
+            f"up to {lost['early_ms']:.3f} ms before their calls")
 
 
 def device_events(torch, prof):
@@ -2285,14 +2416,18 @@ ENGINE_TERMS, ENGINE_PREDICATES, ENGINE_ITERS = 1 << 20, 64, 10
 # a finding, reported and failed, never widened.
 MEM_RATIO_LIMITS = (0.90, 1.25)
 # (shape, multi_pod) of each rank-0 run: train_4k on both meshes (the
-# same 4-row microbatch), decode_32k on gpu32x8.
+# same 4-row microbatch), prefill_32k on both meshes (one 32,768-token
+# row per data rank: the two-pod mesh shards the batch of 32 over data
+# and replicates it over pod), decode_32k on gpu32x8.
 RANK0_CELLS = (("train_4k", False), ("train_4k", True),
+               ("prefill_32k", False), ("prefill_32k", True),
                ("decode_32k", False))
-# The dry-run's train_4k per-device GB on gpu2x32x8 over gpu32x8's: both
-# run 4-row microbatches, and the two-pod mesh holds no gradient
-# accumulators between them (grad_accum 1 against 2), so it needs no
-# more memory; 10% covers the pod axis's own ZeRO shards and
-# collectives. A miss fails the phase.
+# The dry-run's per-device GB on gpu2x32x8 over gpu32x8's, for every
+# shape traced on both: a train step runs 4-row microbatches on both,
+# and the two-pod mesh holds no gradient accumulators between them
+# (grad_accum 1 against 2); an inference step holds the same rows per
+# rank or fewer. So it needs no more memory; 10% covers the pod axis's
+# own ZeRO shards and collectives. A miss fails the phase.
 POD_RATIO_LIMIT = 1.10
 
 
@@ -2314,15 +2449,21 @@ def dryrun_table(torch, smi):
     tensors (the chip host's CPU does the work), and both engine
     variants; one line per cell, its collectives per mesh dim and the
     ops whose operands DTensor redistributed, and a train step's
-    parameter gradients against their shards."""
+    parameter gradients against their shards. Fails when a cell needs
+    more memory per device than the card has."""
     from repro_torch.launch.dryrun import trace_cell
     from repro_torch.launch.engine_dryrun import lower_variant
-    cells = {}
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    cells, over = {}, []
     for arch, shape, multi_pod, sample in DRYRUN_CELLS:
         rec = trace_cell(arch, shape, multi_pod, sample=sample)
         r, m = rec["roofline"], rec["memory_analysis"]
+        if r["memory_per_device_gb"] > card_gb:
+            over.append(f"{arch} {shape} {rec['mesh']} "
+                        f"{r['memory_per_device_gb']:.3f} GB")
         log(f"dryrun {arch} {shape} {rec['mesh']}: per-device "
-            f"{r['memory_per_device_gb']:.3f} GB (arguments "
+            f"{r['memory_per_device_gb']:.3f} GB against the card's "
+            f"{card_gb:.3f} GB (arguments "
             f"{m['argument_size_gb']:.3f}, temporaries "
             f"{m['temp_size_gb']:.3f}), compute {r['compute_s']:.5f} s, "
             f"memory {r['memory_s']:.5f} s, collective "
@@ -2343,14 +2484,22 @@ def dryrun_table(torch, smi):
     for variant in ("baseline", "windowed"):
         rec = lower_variant(variant)
         r = rec["roofline"]
+        if r["memory_per_device_gb"] > card_gb:
+            over.append(f"brtpf-engine {variant} {rec['mesh']} "
+                        f"{r['memory_per_device_gb']:.3f} GB")
         log(f"dryrun brtpf-engine {variant} {rec['mesh']}: per-device "
-            f"{r['memory_per_device_gb']:.3f} GB, compute "
+            f"{r['memory_per_device_gb']:.3f} GB against the card's "
+            f"{card_gb:.3f} GB, compute "
             f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, "
             f"collective {r['collective_s']:.7f} s "
             f"({r['coll_counts']}, {r['coll_bytes_per_chip']:.0f} bytes), "
             f"dominant {r['dominant']} | {smi}")
         rec.pop("top_ops")
         cells[f"brtpf-engine/{variant}/{rec['mesh']}"] = rec
+    if over:
+        raise SmokeFailure(f"dryrun: {len(over)} cells need more memory "
+                           f"per device than the card's {card_gb:.3f} GB: "
+                           + "; ".join(over))
     return cells
 
 
@@ -2490,12 +2639,13 @@ def fill_rank0(torch, tree, gen, vocab):
 
 
 def qwen_rank0(torch, smi, cells):
-    """Phase 12 (c): qwen2-1.5b's train_4k step as rank 0 of gpu32x8 and
-    of gpu2x32x8, and its decode_32k step on gpu32x8, run for real on
-    the card over the fake group (local bf16 shards from a seed;
-    collectives return unreduced, so no value is checked): ms and peak
-    memory against the dry-run's prediction, and the dry-run's two-pod
-    train_4k GB against its one-pod GB (``POD_RATIO_LIMIT``)."""
+    """Phase 12 (c): qwen2-1.5b's train_4k and prefill_32k steps as rank
+    0 of gpu32x8 and of gpu2x32x8, and its decode_32k step on gpu32x8,
+    run for real on the card over the fake group (local bf16 shards from
+    a seed; collectives return unreduced, so no value is checked): ms
+    and peak memory against the dry-run's prediction, and the dry-run's
+    two-pod GB against its one-pod GB for every shape traced on both
+    meshes (``POD_RATIO_LIMIT``)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.launch.dryrun import GradBlocks, build_step, cell_config
@@ -2515,7 +2665,8 @@ def qwen_rank0(torch, smi, cells):
             gen = torch.Generator("cuda").manual_seed(0)
             model, step, args, _ = build_step(cfg, shape, mesh, rules,
                                               shape.kind)
-            fill_rank0(torch, args, gen, cfg.vocab_size)
+            fill_rank0(torch, (args, dict(model.named_parameters())), gen,
+                       cfg.vocab_size)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
@@ -2549,17 +2700,24 @@ def qwen_rank0(torch, smi, cells):
             raise SmokeFailure(f"qwen2-1.5b rank 0 {shape_name} {name}: "
                                f"peak {peak:.3f} GB is {ratio:.3f} x the "
                                f"dry-run's {want:.3f} GB")
-    one, two = (cells[f"qwen2-1.5b/train_4k/{m}"]["roofline"]
-                ["memory_per_device_gb"] for m in ("gpu32x8", "gpu2x32x8"))
-    out["pod_ratio"] = dict(gpu32x8_gb=one, gpu2x32x8_gb=two,
-                            ratio=two / one, limit=POD_RATIO_LIMIT)
-    log(f"qwen2-1.5b train_4k dry-run per device: gpu2x32x8 {two:.3f} GB "
-        f"against gpu32x8 {one:.3f} GB (ratio {two / one:.3f}, limit "
-        f"{POD_RATIO_LIMIT}) | {smi}")
-    if two / one > POD_RATIO_LIMIT:
-        raise SmokeFailure(f"qwen2-1.5b train_4k: the dry-run's gpu2x32x8 "
-                           f"{two:.3f} GB per device is {two / one:.3f} x "
-                           f"gpu32x8's {one:.3f} GB")
+    out["pod_ratio"], misses = {}, []
+    for arch, shape_name, multi_pod, _ in DRYRUN_CELLS:
+        if not multi_pod:        # each two-pod cell is traced on one pod too
+            continue
+        one, two = (cells[f"{arch}/{shape_name}/{m}"]["roofline"]
+                    ["memory_per_device_gb"]
+                    for m in ("gpu32x8", "gpu2x32x8"))
+        out["pod_ratio"][f"{arch}/{shape_name}"] = dict(
+            gpu32x8_gb=one, gpu2x32x8_gb=two, ratio=two / one,
+            limit=POD_RATIO_LIMIT)
+        log(f"{arch} {shape_name} dry-run per device: gpu2x32x8 {two:.3f} "
+            f"GB against gpu32x8 {one:.3f} GB (ratio {two / one:.3f}, "
+            f"limit {POD_RATIO_LIMIT}) | {smi}")
+        if two / one > POD_RATIO_LIMIT:
+            misses.append(f"{arch} {shape_name}: gpu2x32x8 {two:.3f} GB is "
+                          f"{two / one:.3f} x gpu32x8's {one:.3f} GB")
+    if misses:
+        raise SmokeFailure("dry-run per device: " + "; ".join(misses))
     return out
 
 

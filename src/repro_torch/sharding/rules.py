@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -125,22 +126,35 @@ def _names(part: MeshAxes) -> Tuple[str, ...]:
     return (part,) if isinstance(part, str) else tuple(part)
 
 
+def _divides(part: MeshAxes, dim: int, sizes: Mapping[str, int]
+             ) -> MeshAxes:
+    """``part``, or what is left of it once mesh axes are dropped from
+    the front (outermost first) until their product divides ``dim``;
+    ``None`` when none is left."""
+    names = _names(part)
+    while names and dim % math.prod(sizes[n] for n in names) != 0:
+        names = names[1:]
+    if not names:
+        return None
+    return names if len(names) > 1 else names[0]
+
+
 def guard(spec: Spec, shape: Sequence[int], mesh) -> Spec:
     """The divisibility guard: a mapped mesh axis that does not evenly
     divide the tensor dimension is dropped (e.g. 2 KV heads cannot
     shard over an 8-way model axis -- they stay replicated for that
-    arch)."""
+    arch). An entry that names several mesh axes loses them from the
+    front, outermost first, until the product of the rest divides: the
+    port's two-pod mesh (pod=2, data=32) cannot shard a batch of 32
+    over both, but shards it over ``data`` and replicates it over
+    ``pod``, as the reference's (pod=2, data=16) shards it whole. The
+    reference drops the whole entry; on its own meshes the two rules
+    differ only where a dimension divides ``data`` but not ``pod`` x
+    ``data`` (jamba's 16-wide ``a_log`` moments under ``zero``)."""
     sizes = mesh_sizes(mesh)
     parts = list(spec) + [None] * (len(shape) - len(spec))
-    fixed = []
-    for dim, part in zip(shape, parts, strict=True):
-        if part is not None:
-            size = 1
-            for n in _names(part):
-                size *= sizes[n]
-            if dim % size != 0:
-                part = None
-        fixed.append(part)
+    fixed = [None if part is None else _divides(part, dim, sizes)
+             for dim, part in zip(shape, parts, strict=True)]
     while fixed and fixed[-1] is None:
         fixed.pop()
     return tuple(fixed)

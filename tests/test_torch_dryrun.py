@@ -6,9 +6,17 @@
   (``ShardingTypeError`` in its embedding lookup). Subprocesses: the fake
   process group never meets another test's.
 
+* qwen2-1.5b's prefill at ``reduced_for_smoke``, global batch 32, traced
+  in process on fake gpu32x8 and gpu2x32x8 meshes: the two-pod mesh
+  shards the 32 rows over ``data`` (64 pod x data ranks do not divide
+  them), so its per-device bytes stay within chip_smoke.py's
+  ``POD_RATIO_LIMIT`` of one pod's.
+
 The sharded program's numerical parity with one process is in
 ``test_torch_sharding.py``.
 """
+import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -118,3 +126,27 @@ def test_grad_blocks_hold_no_parameter_after_exit():
     assert rec["largest"] == dict(leaf="weight", bytes=48, shard_bytes=48,
                                   placements=[], above=[])
     assert rec["above_shard"] == []
+
+
+def test_two_pod_prefill_shards_its_batch():
+    """A batch of 32 on gpu2x32x8 is sharded over data, not replicated:
+    rank 0's per-device bytes are within ``POD_RATIO_LIMIT`` of
+    gpu32x8's (the whole-entry guard gave 29x)."""
+    from repro_torch.configs.base import (ALL_SHAPES, get_arch,
+                                          reduced_for_smoke)
+    from repro_torch.launch.dryrun import _trace
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = reduced_for_smoke(get_arch("qwen2-1.5b"))
+    shape = dataclasses.replace(
+        {s.name: s for s in ALL_SHAPES}["prefill_32k"], seq_len=64)
+    assert shape.global_batch == 32
+    gb = {}
+    for multi_pod in (False, True):
+        raw = _trace(cfg, shape, multi_pod, False, torch.device("cpu"),
+                     "prefill")
+        gb[multi_pod] = raw["arg"] + raw["out"] + raw["temp"]
+        assert raw["chips"] == (512 if multi_pod else 256)
+    assert gb[True] / gb[False] <= smoke.POD_RATIO_LIMIT, gb

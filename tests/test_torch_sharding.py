@@ -9,6 +9,7 @@ specs build before its mini dry-run's lowering fails); the port's are
 DTensor stand-ins on fake tensors over a fake process group, made and
 destroyed inside each test.
 """
+import functools
 import json
 import os
 import subprocess
@@ -26,7 +27,7 @@ from repro.sharding import rules as RR
 
 from repro_torch.configs.base import get_arch, reduced_for_smoke
 from repro_torch.launch import roofline as RL
-from repro_torch.launch.mesh import MINI, fake_mesh, mesh_name
+from repro_torch.launch.mesh import MINI, PRODUCTION, fake_mesh, mesh_name
 from repro_torch.launch.steps import make_grad_step, make_train_step
 from repro_torch.models.axes import axes_tree, cache_axes
 from repro_torch.models.convert import tree_key
@@ -106,6 +107,33 @@ def test_multi_axis_placements():
         assert TR.placements_for((), mesh) == (Replicate(),) * 3
 
 
+@pytest.mark.parametrize("shape,axes,want", [
+    # batch 32 on pod x data = 64 ranks: drop pod, one row per data rank
+    ((32, 32768), ("batch", "seq"), ("data",)),
+    ((256, 4096), ("batch", "seq"), (("pod", "data"),)),
+    ((1, 524288), ("batch", "seq"), ()),
+    # ZeRO moments: jamba's x_proj (96 wide) and a_log (16 wide) dims
+    ((96,), ("zero",), ("data",)),
+    ((16,), ("zero",), ()),
+])
+def test_divisibility_guard_two_pod(shape, axes, want):
+    """On gpu2x32x8 a multi-axis entry loses mesh axes from the front
+    until the rest divides the dimension, and is dropped only when none
+    is left."""
+    from torch.distributed.tensor import Replicate, Shard
+    with fake_mesh(*PRODUCTION[True], device_type="cpu") as mesh:
+        spec = TR.guard(TR.spec_for(axes, TR.default_rules(True)), shape,
+                        mesh)
+        assert spec == want
+        pl = TR.placements_for(spec, mesh)
+    for name, p in zip(("pod", "data", "model"), pl):
+        dims = [i for i, part in enumerate(spec)
+                if part is not None and name in TR._names(part)]
+        assert p == (Shard(dims[0]) if dims else Replicate())
+    if want == ("data",):
+        assert pl == (Replicate(), Shard(0), Replicate())
+
+
 def _ref_axes(cfg, cache=False):
     import jax
     from repro.models.model import build_model
@@ -149,6 +177,140 @@ def test_model_flops_equal_reference(arch):
     for shape in ALL_SHAPES:
         assert RL.model_flops_for(cfg, shape) == ref_model_flops(ref_cfg,
                                                                  shape)
+
+
+# -- the divisibility guard at full width, leaf by leaf ------------------------
+
+@functools.lru_cache(maxsize=None)
+def _full_width(arch):
+    """Every guarded leaf of ``arch`` at full width, shapes from the JAX
+    package's ``eval_shape``: ``{label: {shape, axes, ref_shape,
+    ref_axes, stacked}}``, labelled by the port's per-layer parameter
+    names (``("param", name)``, its ZeRO moments ``("zero", name)``)
+    and by each ``ALL_SHAPES`` batch leaf (``("batch", shape, leaf)``);
+    ``ref_*`` is the reference's leaf, stacked over layers when
+    ``stacked``."""
+    import jax
+    from repro.launch.specs import zero_extend_axes as ref_zero
+    from repro.models.model import build_model as ref_build
+    from repro_torch.models.axes import param_axes
+    from repro_torch.launch.specs import ENC_FRAMES, zero_extend_axes
+    ref_cfg = ref_archs()[arch]
+    box = {}
+
+    def init(k):
+        p, box["a"] = ref_build(ref_cfg).init(k)
+        return p
+
+    shapes = dict(_tree_leaves(jax.eval_shape(init, jax.random.PRNGKey(0))))
+    ref_axes = dict(_tree_leaves(box["a"], leaf=lambda a: isinstance(a,
+                                                                     tuple)))
+    ref_zero_axes = dict(_tree_leaves(ref_zero(box["a"]),
+                                      leaf=lambda a: isinstance(a, tuple)))
+    cfg = get_arch(arch)
+    axes = param_axes(Model(cfg, torch.bfloat16, torch.device("meta")))
+    zero = zero_extend_axes(axes)
+    leaves = {}
+    for name in axes:
+        k, index, _ = tree_key(cfg, name)
+        shape = tuple(shapes[k].shape)
+        stacked = index is not None
+        for kind, port, ref in (("param", axes, ref_axes),
+                                ("zero", zero, ref_zero_axes)):
+            leaves[(kind, name)] = dict(
+                shape=shape[1:] if stacked else shape, axes=port[name],
+                ref_shape=shape, ref_axes=ref[k], stacked=stacked)
+    for s in ALL_SHAPES:
+        batch = {"tokens": ((s.global_batch, s.seq_len), ("batch", "seq"))}
+        if cfg.encoder_layers:
+            batch["enc_input"] = ((s.global_batch, ENC_FRAMES, cfg.d_model),
+                                  ("batch", None, "act_embed"))
+        for leaf, (shape, ax) in batch.items():
+            leaves[("batch", s.name, leaf)] = dict(
+                shape=shape, axes=ax, ref_shape=shape, ref_axes=ax,
+                stacked=False)
+    return leaves
+
+
+def _tree_leaves(tree, prefix=(), leaf=lambda a: False):
+    for name, sub in tree.items():
+        if isinstance(sub, dict) and not leaf(sub):
+            yield from _tree_leaves(sub, prefix + (name,), leaf)
+        else:
+            yield prefix + (name,), sub
+
+
+def _guard_diffs(arch, sizes, names):
+    """The labels of ``_full_width(arch)`` whose port spec
+    (``rules.guard``) differs from the JAX package's
+    ``param_shardings`` on an abstract mesh of the same ``sizes``
+    (its layers dim dropped for a stacked leaf), under each package's
+    default rules and the config's overrides."""
+    import jax
+    from jax.sharding import AbstractMesh
+    multi_pod = "pod" in names
+    amesh = AbstractMesh(sizes, names)
+    ref_rules = RR.default_rules(multi_pod)
+    ref_rules.update(dict(ref_archs()[arch].sharding_overrides))
+    rules = TR.default_rules(multi_pod)
+    rules.update(dict(get_arch(arch).sharding_overrides))
+    leaves = _full_width(arch)
+    diffs = set()
+    with fake_mesh(sizes, names, device_type="cpu") as mesh:
+        for label, leaf in leaves.items():
+            ref = RR.param_shardings(
+                {"x": leaf["ref_axes"]}, amesh, ref_rules,
+                {"x": jax.ShapeDtypeStruct(leaf["ref_shape"], "float32")})
+            want = tuple(ref["x"].spec)[1 if leaf["stacked"] else 0:]
+            got = TR.guard(TR.spec_for(leaf["axes"], rules), leaf["shape"],
+                           mesh)
+            if got != want:
+                diffs.add(label)
+    return diffs
+
+
+def _moments(arch, suffix):
+    """``("zero", name)`` of every parameter of ``arch`` ending in
+    ``suffix``."""
+    out = {label for label in _full_width(arch)
+           if label[0] == "zero" and label[1].endswith(suffix)}
+    assert out, suffix
+    return out
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_guard_equals_reference_on_its_meshes(arch, mesh):
+    """On the reference's own meshes, every parameter, ZeRO moment and
+    batch leaf of every config at full width is placed as the JAX
+    package places it, except jamba's 16-wide ``mixer.a_log`` moments
+    on (2, 16, 16): they divide ``data`` (16) but not ``pod`` x
+    ``data`` (32), so the port shards them over ``data`` where the
+    reference replicates them (a deliberate difference)."""
+    sizes, names = {"16x16": ((16, 16), ("data", "model")),
+                    "2x16x16": ((2, 16, 16), ("pod", "data",
+                                              "model"))}[mesh]
+    want = set()
+    if arch == "jamba-1.5-large-398b" and mesh == "2x16x16":
+        want = _moments(arch, "mixer.a_log")
+    assert _guard_diffs(arch, sizes, names) == want
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_guard_keeps_the_axes_that_divide_on_the_port_meshes(arch,
+                                                             multi_pod):
+    """On gpu32x8 and gpu2x32x8 the repaired guard parts from the
+    reference's drop-the-whole-entry rule in exactly the prefill_32k
+    batch (32 rows on pod x data = 64 ranks: sharded over data) and
+    jamba's 96-wide ``mixer.x_proj`` ZeRO moments."""
+    want = set()
+    if multi_pod:
+        want = {label for label in _full_width(arch)
+                if label[:2] == ("batch", "prefill_32k")}
+        if arch == "jamba-1.5-large-398b":
+            want |= _moments(arch, "mixer.x_proj")
+    assert _guard_diffs(arch, *PRODUCTION[multi_pod]) == want
 
 
 # -- per-leaf shapes of the dry-run's specs on mini2x2 ----------------------------
@@ -612,6 +774,7 @@ def test_sharded_grads_keep_the_rules_shards(arch, mesh, sharded_results):
 
 _CONSTRAIN_WORKER = r"""
 import contextlib
+import functools
 import json
 import sys
 

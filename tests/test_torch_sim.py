@@ -436,3 +436,52 @@ def test_main_on_the_cpu(capsys):
     assert "validation: simulated=" in out
     assert "kernel profile" not in out
     assert "sim (the JAX package's kernel accounting): throughput" in out
+
+
+def test_smoke_profile_completeness():
+    """What chip_smoke.py's sim phase finds a profile lost: each host
+    call that issues device work and has no device record (matched by
+    correlation id), by name, and each such kernel launch's place from
+    the last; host calls that issue no device work are not counted."""
+    import importlib.util
+    from pathlib import Path
+    from types import SimpleNamespace
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def ev(name, device, corr, start_ns):
+        return SimpleNamespace(name=lambda: name, device_type=lambda: device,
+                               correlation_id=lambda: corr,
+                               start_ns=lambda: start_ns)
+
+    host = [ev("cudaLaunchKernel", cpu, 1, 1000),
+            ev("cudaMemcpyAsync", cpu, 2, 2000),
+            ev("cudaStreamSynchronize", cpu, 3, 3000),
+            ev("cuLaunchKernel", cpu, 4, 4000)]
+    device = [ev("bindjoin_grouped_kernel", cuda, 1, 1500),
+              ev("Memcpy HtoD (Pageable -> Device)", cuda, 2, 2500),
+              ev("bindjoin_fused_kernel", cuda, 4, 4500)]
+
+    def prof(events):
+        return SimpleNamespace(profiler=SimpleNamespace(
+            kineto_results=SimpleNamespace(events=lambda: events)))
+
+    def lost(events):
+        return smoke.lost_device_records(torch, prof(events))
+
+    assert lost(host + device) == dict(calls={}, launches=0, of=2,
+                                       from_end=[], early_ms=0.0)
+    assert lost(host + device[:2]) == dict(
+        calls={"cuLaunchKernel": 1}, launches=1, of=2, from_end=[1],
+        early_ms=0.0)
+    assert lost(host) == dict(
+        calls={"cudaLaunchKernel": 1, "cudaMemcpyAsync": 1,
+               "cuLaunchKernel": 1}, launches=2, of=2, from_end=[2, 1],
+        early_ms=0.0)
+    # a device record the profiler's clock put 2.5 us before its call
+    early = ev("bindjoin_fused_kernel", cuda, 4, 1500)
+    assert lost(host + device[:2] + [early])["early_ms"] == 0.0025
