@@ -48,6 +48,7 @@ import asyncio
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+from . import trace as _trace
 from .selectors import Fragment
 from .server import BrTPFServer, Request
 
@@ -131,8 +132,11 @@ class AsyncBrTPFServer:
         self.queue_depth = queue_depth
         self.stats = BatchStats()
         self._executor = executor
+        # (request, its future, expiry on the loop clock, its wait span
+        # while a profiler is on)
         self._pending: List[Tuple[Request, "asyncio.Future",
-                                  Optional[float]]] = []
+                                  Optional[float],
+                                  Optional[_trace.Open]]] = []
         self._timer: Optional[asyncio.TimerHandle] = None
         self._flush_lock = asyncio.Lock()
         self._closed = False
@@ -180,63 +184,70 @@ class AsyncBrTPFServer:
 
     async def handle(self, req: Request) -> Fragment:
         """Enqueue one page request; resolves with its fragment."""
-        if self._closed:
-            raise RuntimeError("AsyncBrTPFServer is closed")
-        # Per-request validation: an oversized request fails alone, now,
-        # and never joins a batch (handle_batch's atomic all-or-nothing
-        # check therefore never rejects a coalesced batch).
+        front = _trace.front_span() if _trace.enabled() else None
         try:
-            self.server.validate(req)
-        except Exception:
-            self.stats.rejected += 1
-            raise
-        # Deadline check at enqueue (docs/resilience.md): a request that
-        # arrives with an exhausted budget is shed now -- nobody is
-        # waiting for the response, so serving it would be pure waste.
-        if req.timeout_ms is not None and req.timeout_ms <= 0:
-            self.stats.shed += 1
-            raise DeadlineExceeded(
-                f"request arrived with exhausted deadline budget "
-                f"(timeout_ms={req.timeout_ms})")
-        # Unified-store fast path: a page that is already resident (an
-        # HTTP-cached page or a memo-resident fragment) launches
-        # nothing, so there is nothing to coalesce -- serve it now
-        # instead of holding it for the batching window. Responses and
-        # accounting are identical to the batched path (handle() serves
-        # from the store either way); only the window latency is saved.
-        # The flush lock serializes this handle() against handle_batch
-        # (with an executor, a flush mutates server state off-loop).
-        if self.server.page_resident(req):
-            async with self._flush_lock:
-                self.stats.fast_path += 1
-                return self.server.handle(req)
-        # Admission control (docs/serving.md): refuse instead of
-        # buffering without bound -- the queue drains within one
-        # batching window, so the client can retry after backoff.
-        if (self.queue_depth is not None
-                and len(self._pending) >= self.queue_depth):
-            self.stats.rejected += 1
-            raise QueueSaturated(
-                f"batching queue full: {len(self._pending)} pending >= "
-                f"queue_depth={self.queue_depth}")
-        loop = asyncio.get_running_loop()
-        fut: "asyncio.Future" = loop.create_future()
-        # Absolute expiry on the loop clock: checked again at flush, so
-        # a request that spent its whole budget waiting out the batching
-        # window is shed instead of joining the launch.
-        expires = (None if req.timeout_ms is None
-                   else loop.time() + req.timeout_ms / 1e3)
-        self._pending.append((req, fut, expires))
-        self.stats.requests += 1
-        if self.batch_window_s <= 0 or len(self._pending) >= self.max_batch:
-            cause = ("full" if len(self._pending) >= self.max_batch
-                     else "inline")
-            self._cancel_timer()
-            await self._flush(cause)
-        elif self._timer is None:
-            self._timer = loop.call_later(self.batch_window_s,
-                                          self._on_timer, loop)
-        return await fut
+            if self._closed:
+                raise RuntimeError("AsyncBrTPFServer is closed")
+            # Per-request validation: an oversized request fails alone, now,
+            # and never joins a batch (handle_batch's atomic all-or-nothing
+            # check therefore never rejects a coalesced batch).
+            try:
+                self.server.validate(req)
+            except Exception:
+                self.stats.rejected += 1
+                raise
+            # Deadline check at enqueue (docs/resilience.md): a request that
+            # arrives with an exhausted budget is shed now -- nobody is
+            # waiting for the response, so serving it would be pure waste.
+            if req.timeout_ms is not None and req.timeout_ms <= 0:
+                self.stats.shed += 1
+                raise DeadlineExceeded(
+                    f"request arrived with exhausted deadline budget "
+                    f"(timeout_ms={req.timeout_ms})")
+            # Unified-store fast path: a page that is already resident (an
+            # HTTP-cached page or a memo-resident fragment) launches
+            # nothing, so there is nothing to coalesce -- serve it now
+            # instead of holding it for the batching window. Responses and
+            # accounting are identical to the batched path (handle() serves
+            # from the store either way); only the window latency is saved.
+            # The flush lock serializes this handle() against handle_batch
+            # (with an executor, a flush mutates server state off-loop).
+            if self.server.page_resident(req):
+                async with self._flush_lock:
+                    self.stats.fast_path += 1
+                    return self.server.handle(req)
+            # Admission control (docs/serving.md): refuse instead of
+            # buffering without bound -- the queue drains within one
+            # batching window, so the client can retry after backoff.
+            if (self.queue_depth is not None
+                    and len(self._pending) >= self.queue_depth):
+                self.stats.rejected += 1
+                raise QueueSaturated(
+                    f"batching queue full: {len(self._pending)} pending >= "
+                    f"queue_depth={self.queue_depth}")
+            loop = asyncio.get_running_loop()
+            fut: "asyncio.Future" = loop.create_future()
+            # Absolute expiry on the loop clock: checked again at flush, so
+            # a request that spent its whole budget waiting out the batching
+            # window is shed instead of joining the launch.
+            expires = (None if req.timeout_ms is None
+                       else loop.time() + req.timeout_ms / 1e3)
+            wait = (None if front is None
+                    else _trace.Open("wait", front.id, front.req))
+            self._pending.append((req, fut, expires, wait))
+            self.stats.requests += 1
+            full = len(self._pending) >= self.max_batch
+            if self.batch_window_s <= 0 or full:
+                cause = "full" if full else "inline"
+                self._cancel_timer()
+                await self._flush(cause)
+            elif self._timer is None:
+                self._timer = loop.call_later(self.batch_window_s,
+                                              self._on_timer, loop)
+            return await fut
+        finally:
+            if front is not None:
+                front.close()
 
     async def aclose(self) -> None:
         """Flush anything pending and refuse further requests."""
@@ -260,11 +271,12 @@ class AsyncBrTPFServer:
             self._timer = None
 
     def _on_timer(self, loop) -> None:
+        due = self._timer.when()
         self._timer = None
         if self._pending:
-            loop.create_task(self._flush("timer"))
+            loop.create_task(self._flush("timer", due))
 
-    async def _flush(self, cause: str) -> None:
+    async def _flush(self, cause: str, due: Optional[float] = None) -> None:
         """Dispatch the current batch through ``handle_batch``.
 
         The lock serializes flushes (FIFO -- asyncio.Lock wakes waiters
@@ -272,7 +284,8 @@ class AsyncBrTPFServer:
         *before* dispatch so mid-flush arrivals open a new batch. The
         cause is counted here, after the non-empty batch is taken, so a
         racing timer/full flush that finds an empty queue counts as
-        nothing.
+        nothing. ``due`` is the loop time at which a timer flush's timer
+        fell due (its ``flush`` span keeps it, core/trace.py).
         """
         async with self._flush_lock:
             taken = self._pending
@@ -287,8 +300,10 @@ class AsyncBrTPFServer:
             loop = asyncio.get_running_loop()
             now = loop.time()
             batch = []
-            for req, fut, expires in taken:
+            for req, fut, expires, wait in taken:
                 if expires is not None and now >= expires:
+                    if wait is not None:
+                        wait.close()
                     self.stats.shed += 1
                     if not fut.done():
                         fut.set_exception(DeadlineExceeded(
@@ -309,17 +324,26 @@ class AsyncBrTPFServer:
             if len(batch) > 1:
                 self.stats.coalesced_requests += len(batch)
             reqs = [r for r, _ in batch]
+            flush = (_trace.Flush(
+                [wait for _r, _f, exp, wait in taken
+                 if wait is not None and (exp is None or now < exp)],
+                cause, due) if _trace.enabled() else None)
+            serve = (self.server.handle_batch if flush is None
+                     else flush.bind(self.server.handle_batch))
             try:
                 if self._executor is not None:
                     frags = await loop.run_in_executor(
-                        self._executor, self.server.handle_batch, reqs)
+                        self._executor, serve, reqs)
                 else:
-                    frags = self.server.handle_batch(reqs)
+                    frags = serve(reqs)
             except Exception as exc:
                 for _, fut in batch:
                     if not fut.done():
                         fut.set_exception(exc)
                 return
+            finally:
+                if flush is not None:
+                    flush.close()
             for (_, fut), frag in zip(batch, frags, strict=True):
                 if not fut.done():
                     fut.set_result(frag)

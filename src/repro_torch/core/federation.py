@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from . import trace as _trace
 from .fragments import FragmentStore, fragment_key
 from .kernel_selectors import (_EMPTY, FusedSegment, LaunchRecord,
                                consult_fragments, consult_segment,
@@ -610,9 +611,11 @@ class FederatedStore:
         unless ``count_only``, per group its kept rows (int32 [K, 3]) and
         their first-matching slots, page by page, then shard by shard.
         """
+        _trace.phase("copy_in")
         mask, first, cnt, _ = kops.bindjoin_grouped_cuda(
             index.triples, index.valid, slots, base_vec, live=live,
             width=width, spans=spans, rows=rows)
+        _trace.phase("collect")
 
         def kept_rows(cells):
             p, s, r = cells[:, 0], cells[:, 1], cells[:, 3]
@@ -651,9 +654,11 @@ class FederatedStore:
         [K, 3]) and their first-matching slots, in round, shard, row
         order (pages come in round order).
         """
+        _trace.phase("copy_in")
         mask, first, cnt, _ = kops.bindjoin_fused_cuda(
             index.triples, index.valid, slots, base_vecs, spans=spans,
             seg_of_page=seg_of_page, width=width, live=live)
+        _trace.phase("collect")
         if gathered is not None and not count_only:
             mask *= gathered[:, None, None, None]
 
@@ -1015,6 +1020,7 @@ class ShardedSelector:
         Groups resident in the connected fragment store never launch a
         window: their share is recorded as skipped (same contract as
         :class:`~repro_torch.core.kernel_selectors.KernelSelector`)."""
+        _trace.phase("prep")
         if patterns is None:
             patterns = [instantiate_patterns(tp, om) for om in omegas]
         results, live = consult_fragments(self.fragments, tp, omegas,
@@ -1023,6 +1029,7 @@ class ShardedSelector:
             live_omegas = [omegas[i] for i in live]
             fresh = self._launch_groups(tp, live_omegas,
                                         [patterns[i] for i in live])
+            _trace.phase("serve")
             record_fragments(self.fragments, tp, live_omegas, fresh)
             for i, res in zip(live, fresh, strict=True):
                 results[i] = res
@@ -1107,6 +1114,7 @@ class ShardedSelector:
         plan: WindowPlan, count_only: bool = False,
     ) -> List[Tuple[np.ndarray, int]]:
         """Execute one planned (grouped) request: fast path or windows."""
+        _trace.phase("prep")
         g = len(patterns)
         m = max(len(p) for p in patterns)
         window = self.window
@@ -1140,8 +1148,10 @@ class ShardedSelector:
         index = self.fed.indexes[plan.order]
         shards = self.fed.shards
         dev = self.fed.device
+        _trace.phase("copy_in")
         slots_d = _to(slots, dev)
         bv_d = _to(base_vec, dev)
+        _trace.phase("prep")
         kept: List[List[np.ndarray]] = [[] for _ in range(g)]
         firsts: List[List[np.ndarray]] = [[] for _ in range(g)]
         cnt_total = np.zeros((g,), dtype=np.int64)
@@ -1180,6 +1190,7 @@ class ShardedSelector:
                         self.shard_pages[s] += 1
                         self.shard_rows[s] += b - a
             for r0 in range(0, rounds, per_chunk):
+                _trace.phase("copy_in")
                 launch(window,
                        spans=_to(round_spans[r0:r0 + per_chunk], dev))
             n_launched = rounds
@@ -1210,17 +1221,21 @@ class ShardedSelector:
             n_launched = len(plan.pages)
             # the bound-prefix range, searched once per request on the
             # device (the host keys only chose the pages)
+            _trace.phase("copy_in")
             start, end = _search(index.keys, plan.lo_key, plan.hi_key)
             for compact, items in runs:
                 if compact:
                     for sels, width in _row_list_chunks(items, shards):
+                        _trace.phase("prep")
                         rows = np.full((len(sels), shards, width), -1,
                                        dtype=np.int32)
                         for i, sel in enumerate(sels):
                             rows[i, :, :sel.shape[1]] = sel
+                        _trace.phase("copy_in")
                         launch(width, rows=_to(rows, dev))
                     continue
                 for i in range(0, len(items), per_chunk):
+                    _trace.phase("copy_in")
                     pages = _to(np.asarray(items[i:i + per_chunk],
                                            dtype=np.int64), dev)
                     lo = start[None, :] + pages[:, None] * window
@@ -1232,6 +1247,7 @@ class ShardedSelector:
                              rows=plan.candidate_rows,
                              pages=len(plan.pages))
 
+        _trace.phase("order")
         out: List[Tuple[np.ndarray, int]] = []
         for gi in range(g):
             if count_only or not kept[gi]:
@@ -1269,6 +1285,7 @@ class ShardedSelector:
                          List[Optional[np.ndarray]], List[int],
                          WindowPlan]] = []
         for si, seg in enumerate(segments):
+            _trace.phase("prep")
             patterns = seg.patterns
             if patterns is None:
                 patterns = [instantiate_patterns(seg.tp, om)
@@ -1282,6 +1299,7 @@ class ShardedSelector:
             all_insts = [p for group in pats_live for p in group]
             plan = self.fed.plan_windows(seg.tp, all_insts, self.window)
             if not plan.pages:
+                _trace.phase("serve")
                 finish_segment(self.fragments, seg, omegas_live,
                                [(_EMPTY, 0)] * len(live), results[si],
                                live)
@@ -1295,6 +1313,7 @@ class ShardedSelector:
                     cand_full=plan.range_rows, fast_path=True))
                 fresh = select_block_numpy(block, seg.tp, pats_live,
                                            count_only=seg.count_only)
+                _trace.phase("serve")
                 finish_segment(self.fragments, seg, omegas_live, fresh,
                                results[si], live)
                 continue
@@ -1302,6 +1321,7 @@ class ShardedSelector:
         if not work:
             return results
 
+        _trace.phase("prep")
         # Legality: declared dependencies refuse the whole batch
         # (conservative -- DaCe-style fusion only for independent
         # states); geometry ceilings are checked per order group below.
@@ -1332,6 +1352,7 @@ class ShardedSelector:
                     seg = segments[si]
                     fresh = self._launch_plan(seg.tp, pats_live, plan,
                                               count_only=seg.count_only)
+                    _trace.phase("serve")
                     finish_segment(self.fragments, seg, omegas_live,
                                    fresh, results[si], live)
                 continue
@@ -1348,6 +1369,7 @@ class ShardedSelector:
         chunks of ``MAX_CHUNK_ROWS`` (pages x shards x window), one fused
         launch, compaction and copy per chunk.
         """
+        _trace.phase("prep")
         window = self.window
         wp = _pow2(window)
         s = len(items)
@@ -1361,8 +1383,10 @@ class ShardedSelector:
             np.concatenate([pg for pg, _v, _b in grids]),
             np.concatenate([v for _p, v, _b in grids]), mp)
         seg_live = [live_slot_count(v) for _p, v, _b in grids]
+        _trace.phase("copy_in")
         slots_d = _to(slots.reshape(s, g_pad, mp, 4), dev)
         bvs_d = _to(np.stack([b for _p, _v, b in grids]), dev)
+        _trace.phase("prep")
         for _si, _pl, _om, _live, plan in items:
             if self.heat is not None and plan.pages:
                 self.heat.record(plan.order, plan.lo_key, plan.hi_key,
@@ -1389,6 +1413,7 @@ class ShardedSelector:
 
         # each segment's bound-prefix range, searched once for all shards
         # on the device (the host keys only chose the pages)
+        _trace.phase("copy_in")
         keys = torch.tensor([[w[4].lo_key, w[4].hi_key] for w in items],
                             dtype=torch.int64, device=dev)
         start = torch.searchsorted(index.keys, keys[None, :, 0].expand(
@@ -1403,6 +1428,7 @@ class ShardedSelector:
                                                 for _ in range(s)]
         per_chunk = max(1, MAX_CHUNK_ROWS // (shards * window))
         for c0 in range(0, len(pages), per_chunk):
+            _trace.phase("copy_in")
             chunk = np.asarray(pages[c0:c0 + per_chunk], dtype=np.int64)
             only_counts = [counting[wi] for wi in chunk[:, 0]]
             seg_d = _to(chunk[:, 0], dev)
@@ -1427,6 +1453,7 @@ class ShardedSelector:
 
         for wi, (si, pats_live, omegas_live, live_g, _plan) in \
                 enumerate(items):
+            _trace.phase("order")
             seg = segments[si]
             fresh: List[Tuple[np.ndarray, int]] = []
             for gi in range(len(live_g)):
@@ -1438,5 +1465,6 @@ class ShardedSelector:
                 first_g = np.concatenate(firsts[wi][gi], axis=0)
                 fresh.append((stream_order(full, first_g,
                                            pats_live[gi]), cnt))
+            _trace.phase("serve")
             finish_segment(self.fragments, seg, omegas_live, fresh,
                            results[si], live_g)

@@ -57,6 +57,7 @@ from ..kernels import ops as kops
 from .fragments import FragmentStore, fragment_key
 from .metrics import CudaWork
 from .rdf import TriplePattern, is_var
+from . import trace as _trace
 from .selectors import instantiate_patterns
 from .store import _ORDERS, TripleStore, _pack
 
@@ -549,6 +550,7 @@ class KernelSelector:
         fragment store never reach the kernel: their launch share is
         recorded as skipped and only the remaining groups launch.
         """
+        _trace.phase("prep")
         if patterns is None:
             patterns = [instantiate_patterns(tp, om) for om in omegas]
         results, live = consult_fragments(self.fragments, tp, omegas,
@@ -557,6 +559,7 @@ class KernelSelector:
             live_omegas = [omegas[i] for i in live]
             fresh = self._launch_groups(tp, live_omegas,
                                         [patterns[i] for i in live])
+            _trace.phase("serve")
             record_fragments(self.fragments, tp, live_omegas, fresh)
             for i, res in zip(live, fresh, strict=True):
                 results[i] = res
@@ -620,6 +623,7 @@ class KernelSelector:
         # would genuinely launch join the fused stream.
         work = []
         for si, patterns, live in prepared:
+            _trace.phase("prep")
             seg = segments[si]
             omegas_live = [seg.omegas[i] for i in live]
             pats_live = [patterns[i] for i in live]
@@ -650,6 +654,7 @@ class KernelSelector:
                     block = rng.triples
                 fresh = select_block_numpy(block, seg.tp, pats_live,
                                            count_only=seg.count_only)
+                _trace.phase("serve")
                 self._finish_segment(seg, omegas_live, fresh,
                                      results[si], live)
                 continue
@@ -661,6 +666,7 @@ class KernelSelector:
         if not work:
             return results
 
+        _trace.phase("prep")
         # Fused geometry, the JAX package's (legality and LaunchRecord):
         # common padded (G, Mp) slot grid, power-of-two segment/tile
         # counts, each segment's block aligned to bt-row tiles.
@@ -684,6 +690,7 @@ class KernelSelector:
                 fresh = self._launch_block(
                     seg.tp, pats_live, block, t, pruned, full,
                     count_only=seg.count_only)
+                _trace.phase("serve")
                 self._finish_segment(seg, omegas_live, fresh,
                                      results[si], live)
             return results
@@ -700,6 +707,7 @@ class KernelSelector:
         slots, live = kops.pack_slots(
             np.concatenate([pg for pg, _v, _b in grids]),
             np.concatenate([v for _p, v, _b in grids]), mp)
+        _trace.phase("copy_in")
         seg_of_page = self._to_device(np.arange(s, dtype=np.int32))
         spans_d = self._to_device(spans[:, None].astype(np.int64))
         mask, first, cnt, _ = kops.bindjoin_fused_cuda(
@@ -709,6 +717,7 @@ class KernelSelector:
             spans=spans_d, seg_of_page=seg_of_page,
             width=int(max(w[5] for w in work)), live=live)
 
+        _trace.phase("collect")
         full_tiles = sum(-(-w[7] // bt) for w in work)
         self.cuda.launches += 1
         self.cuda.live_slots += max(live_slot_count(v) for _p, v, _b in grids)
@@ -733,6 +742,7 @@ class KernelSelector:
             seg_of_page=seg_of_page, segments=s)
         for wi, (si, pats_live, omegas_live, live_g, _b, _t, _pr, _full) \
                 in enumerate(work):
+            _trace.phase("order")
             seg = segments[si]
             fresh: List[Tuple[np.ndarray, int]] = []
             for gi in range(len(live_g)):
@@ -743,6 +753,7 @@ class KernelSelector:
                 pos, first_g = kept[wi][gi]
                 fresh.append((stream_order(cand[pos[:, 0]], first_g,
                                            pats_live[gi]), cnt_g))
+            _trace.phase("serve")
             self._finish_segment(seg, omegas_live, fresh, results[si],
                                  live_g)
         return results
@@ -820,6 +831,7 @@ class KernelSelector:
         accounting. ``count_only`` skips the compact/gather/stream
         epilogue: only the per-group Definition-2 counts come back.
         """
+        _trace.phase("prep")
         g = len(patterns)
         m = max(len(p) for p in patterns)
         pats, valid, base_vec = marshal_pattern_grid(tp, patterns, g, m)
@@ -829,11 +841,13 @@ class KernelSelector:
         # One page, one shard: the block's own rows over [0, t), in a
         # launch as wide as the block's shape bucket.
         tpad = _bucket(t)
+        _trace.phase("copy_in")
         mask, first, cnt, _ = kops.bindjoin_grouped_cuda(
             self._to_device(np.ascontiguousarray(block, np.int32))[None],
             None, self._to_device(slots), self._to_device(base_vec),
             live=live, width=tpad,
             spans=self._to_device(np.array([[[0, t]]], np.int64)))
+        _trace.phase("collect")
         self.cuda.launches += 1
         self.cuda.live_slots += live_slot_count(valid)
         self.launches.append(
@@ -843,6 +857,7 @@ class KernelSelector:
         cnts, kept = grouped_results(mask, first, cnt, g, count_only,
                                      payload=lambda c: c[:, 3:4])
         cnts, kept = cnts[0], kept[0] if kept else None
+        _trace.phase("order")
         out: List[Tuple[np.ndarray, int]] = []
         for gi in range(g):
             if count_only or kept[gi][1].shape[0] == 0:

@@ -25,11 +25,17 @@ same one the JAX package emits.
 app's per-route section and of the chaos run's outcome
 (:func:`chaos_summary`): p50/p95/p99 latency in milliseconds plus
 ``req_per_s``.
+
+:data:`TRACE` is the serving path's span recorder (``core/trace.py``):
+one id per request, the host phases of each flush, recorded only while
+a ``torch.profiler`` session is on (docs/torch_tracing.md).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
+
+from .trace import TRACE, Span, SpanRing  # noqa: F401
 
 
 @dataclasses.dataclass

@@ -53,6 +53,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import trace as _trace
 from .cache import LRUCache, request_key
 from .config import (DEFAULT_MAX_MPR, DEFAULT_META_TRIPLES_PER_PAGE,
                      DEFAULT_PAGE_SIZE, ServerConfig)
@@ -283,6 +284,7 @@ class BrTPFServer:
             elif self._selector is not None:
                 self._note_launch_skip()
             return memo
+        _trace.phase("prep")
         if req.count_only:
             return self._count_data(req, memo_key)
         if req.is_brtpf:
@@ -302,6 +304,7 @@ class BrTPFServer:
             else:
                 data = tpf_select(self.store, req.pattern)
                 cnt = self.store.cardinality(req.pattern)
+        _trace.phase("serve")
         self._memoize(memo_key, data, cnt)
         return data, cnt
 
@@ -317,12 +320,14 @@ class BrTPFServer:
         if self._selector is not None:
             n0 = len(self._selector.launches)
             cnt = self._selector.select_count(req.pattern, omega, patterns)
+            _trace.phase("serve")
             self._charge_launches(self._selector.launches[n0:])
         elif omega is not None:
             from .selectors import brtpf_count
             cnt = brtpf_count(self.store, req.pattern, omega)
         else:
             cnt = int(self.store.cardinality(req.pattern))
+        _trace.phase("serve")
         data = np.empty((0, 3), dtype=np.int32)
         self._memoize(memo_key, data, cnt)
         return data, cnt
@@ -333,6 +338,7 @@ class BrTPFServer:
         n0 = len(self._selector.launches)
         data, cnt = self._selector.select_with_cnt(tp, omega,
                                                           insts)
+        _trace.phase("serve")
         self._charge_launches(self._selector.launches[n0:])
         return data, cnt
 
@@ -421,7 +427,9 @@ class BrTPFServer:
         cap = self.fragments.memo_capacity
         self.fragments.memo_capacity = cap + len(reqs)
         try:
+            _trace.phase("prep")
             self._prefill_batch(reqs)
+            _trace.phase("serve")
             return [self.handle(r) for r in reqs]
         finally:
             self._prefilled = set()
@@ -452,6 +460,7 @@ class BrTPFServer:
             member_reqs = list(members.values())
             if len(member_reqs) < 2:
                 continue  # solo requests take the normal handle() path
+            _trace.phase("prep")
             tp = member_reqs[0].pattern
             omegas = [r.omega if r.is_brtpf else None
                       for r in member_reqs]
@@ -459,6 +468,7 @@ class BrTPFServer:
             n0 = len(self._selector.launches)
             results = self._selector.select_same_pattern(
                 tp, omegas, insts)
+            _trace.phase("serve")
             self._charge_launches(self._selector.launches[n0:],
                                   batched_requests=len(member_reqs))
             self._consume_prefill(member_reqs, insts, results)
@@ -480,6 +490,7 @@ class BrTPFServer:
             members.append((member_reqs, insts))
         n0 = len(self._selector.launches)
         rows = self._selector.select_fused(segments)
+        _trace.phase("serve")
         self._charge_launches(
             self._selector.launches[n0:],
             batched_requests=sum(len(m) for m, _ in members))

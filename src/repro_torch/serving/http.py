@@ -41,6 +41,7 @@ from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs
 
+from ..core import trace as _trace
 from ..core.batching import (DEFAULT_BATCH_WINDOW_S, DEFAULT_MAX_BATCH,
                              AsyncBrTPFServer, DeadlineExceeded,
                              QueueSaturated)
@@ -73,7 +74,9 @@ class RouteLatency:
     the same quantile keys server-side that a closed-loop load generator
     measures client-side. ``req_per_s`` is computed over the wall time
     since the route's first recorded request (the SLO-relevant arrival
-    rate, not the sum of service times).
+    rate, not the sum of service times). The app times a request once:
+    the same two clock readings bound its ``request`` span
+    (core/trace.py) while a profiler is on.
     """
 
     def __init__(self, cap: int = ROUTE_SAMPLE_CAP) -> None:
@@ -128,7 +131,12 @@ class BrTPFApp:
             raise RuntimeError(f"unsupported ASGI scope {scope['type']!r}")
         method = scope["method"]
         path = scope["path"]
-        start = time.perf_counter()
+        span = None
+        if path == "/fragment" and _trace.enabled():
+            span, token = _trace.request_span()
+            t0 = span.t0
+        else:
+            t0 = time.perf_counter_ns()
         try:
             if path == "/fragment" and method in ("GET", "POST"):
                 await self._fragment(scope, receive, send, method)
@@ -146,10 +154,12 @@ class BrTPFApp:
                     send, 404, error_to_wire(404, f"unknown path {path!r}",
                                              code="NOT_FOUND"))
         finally:
+            t1 = time.perf_counter_ns()
+            if span is not None:
+                _trace.end_request(span, token, t1)
             if path in _ROUTED_PATHS:
-                now = time.perf_counter()
                 self.route_latency.record(f"{method} {path}",
-                                          now - start, now)
+                                          (t1 - t0) / 1e9, t1 / 1e9)
 
     async def _lifespan(self, receive, send) -> None:
         while True:
