@@ -818,6 +818,95 @@ def _chop_spans(spans: List[List[Tuple[int, int]]],
     return chunks, rounds
 
 
+def _pow2_array(n: np.ndarray) -> np.ndarray:
+    """``_pow2`` of every element of a positive int64 array."""
+    return np.left_shift(1, np.frexp(n - 1)[1]).astype(np.int64)
+
+
+def _live_before(lo: np.ndarray, hi: np.ndarray, cum: np.ndarray,
+                 x: np.ndarray) -> np.ndarray:
+    """Rows at positions below each ``x`` inside the sorted, disjoint
+    spans ``[lo, hi)`` (``cum``: their cumulative lengths, from 0):
+    every span that ends at or before ``x``, and the part of the one
+    span that ``x`` falls inside."""
+    j = np.searchsorted(hi, x, side="right")
+    inside = j < lo.size
+    part = x[inside] - lo[j[inside]]
+    out = cum[j]
+    out[inside] += np.maximum(part, 0)
+    return out
+
+
+class PageTable:
+    """One :class:`WindowPlan`'s pages, shard by shard, computed once.
+
+    ``rows`` (int64 [pages, shards]) holds the live rows of each planned
+    page's owned span ``[start + page * window, min(... + window, end))``
+    on each shard: the rows inside the plan's merged sub-range spans for
+    a pruned plan, the whole span otherwise (0 where the page lies past
+    the shard's range). A shard had work in a page iff its entry is
+    positive. A pruned page's counts come from one ``searchsorted`` of
+    the pages' bounds against each shard's sorted, disjoint spans and
+    their cumulative lengths, so no span is visited once per page.
+
+    :meth:`row_lists` gives the sub-window compaction plan of every page
+    (docs/fusion.md): where the widest shard's live rows, padded to a
+    power of two ``wc``, fit in half the window, the int32 [shards, wc]
+    row list (-1 padding) that the grouped step reads in place of the
+    page's span; otherwise None and the page streams its span.
+    """
+
+    def __init__(self, plan: WindowPlan, window: int, shards: int) -> None:
+        self.window = window
+        pages = np.asarray(plan.pages, dtype=np.int64)
+        self.rows = np.zeros((pages.size, shards), dtype=np.int64)
+        # per shard: (its spans' starts, their cumulative lengths, the
+        # live rows before each page's owned span); pruned plans only
+        self._live: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        if plan.shard_bounds is None or not pages.size:
+            return
+        bounds = np.asarray(plan.shard_bounds, dtype=np.int64).reshape(-1, 2)
+        plo = bounds[None, :, 0] + pages[:, None] * window   # [pages, shards]
+        phi = np.maximum(np.minimum(plo + window, bounds[None, :, 1]), plo)
+        if not plan.pruned or plan.shard_spans is None:
+            self.rows[:] = phi - plo
+            return
+        for s, spans in enumerate(plan.shard_spans):
+            spans = np.asarray(spans, dtype=np.int64).reshape(-1, 2)
+            lo, hi = spans[spans[:, 1] > spans[:, 0]].T
+            cum = np.zeros((lo.size + 1,), dtype=np.int64)
+            np.cumsum(hi - lo, out=cum[1:])
+            first = _live_before(lo, hi, cum, plo[:, s])
+            self.rows[:, s] = _live_before(lo, hi, cum, phi[:, s]) - first
+            self._live.append((lo, cum, first))
+
+    def row_lists(self) -> List[Optional[np.ndarray]]:
+        """Per page its compact row list, or None (see the class)."""
+        out: List[Optional[np.ndarray]] = [None] * self.rows.shape[0]
+        if not self._live:
+            return out
+        wc = _pow2_array(np.maximum(self.rows.max(axis=1), 1))
+        compact = wc <= self.window // 2
+        for width in np.unique(wc[compact]):
+            idx = np.flatnonzero(compact & (wc == width))
+            cols = np.arange(width)[None, :]
+            sel = np.full((idx.size, len(self._live), int(width)), -1,
+                          dtype=np.int32)
+            for s, (lo, cum, first) in enumerate(self._live):
+                if not lo.size:
+                    continue
+                # the page's live rows are the shard's live rows of rank
+                # first .. first + rows - 1, in span order
+                rank = first[idx, None] + cols
+                k = np.minimum(np.searchsorted(cum[1:], rank, side="right"),
+                               lo.size - 1)
+                sel[:, s] = np.where(cols < self.rows[idx, s, None],
+                                     lo[k] + rank - cum[k], -1)
+            for i, p in enumerate(idx):
+                out[p] = sel[i]
+        return out
+
+
 def _row_list_chunks(sels: List[np.ndarray], shards: int):
     """Consecutive compact pages' row lists (int32 [shards, wc] each) in
     chunks of at most ``MAX_CHUNK_ROWS`` rows once padded to the chunk's
@@ -932,33 +1021,13 @@ class ShardedSelector:
         self.shard_rows = np.zeros((fed.shards,), dtype=np.int64)
         self.shard_pages = np.zeros((fed.shards,), dtype=np.int64)
 
-    def _charge_shard_page(self, plan: WindowPlan, window: int,
-                           page_idx: int,
-                           row_sel: Optional[np.ndarray] = None) -> None:
-        """Attribute one window page to the shards that had work in it."""
-        if plan.shard_bounds is None:
-            return
-        for s, (start, end) in enumerate(plan.shard_bounds):
-            plo = start + page_idx * window
-            phi = min(plo + window, end)
-            if phi <= plo:
-                continue
-            if row_sel is not None:
-                rows = int((row_sel[s] >= 0).sum())
-                if rows == 0:
-                    continue
-            elif plan.pruned and plan.shard_spans is not None:
-                rows = 0
-                for lo, hi in np.asarray(
-                        plan.shard_spans[s]).reshape(-1, 2):
-                    rows += max(0, min(int(hi), phi) - max(int(lo), plo))
-                if rows == 0:
-                    continue
-            else:
-                rows = phi - plo
-            self.shard_launches[s] += 1
-            self.shard_pages[s] += 1
-            self.shard_rows[s] += rows
+    def _charge_pages(self, table: PageTable) -> None:
+        """Attribute a plan's window pages to the shards that had work
+        in them: per shard the pages it had live rows in, and the rows."""
+        worked = (table.rows > 0).sum(axis=0)
+        self.shard_launches += worked
+        self.shard_pages += worked
+        self.shard_rows += table.rows.sum(axis=0)
 
     def _routed_spans(self, plan: WindowPlan) -> List[List[Tuple[int, int]]]:
         """Per-shard live [lo, hi) position spans for the routed path,
@@ -1072,43 +1141,6 @@ class ShardedSelector:
             return self.store.gather_subranges(sr)
         return self.store.candidate_range(tp).triples
 
-    def _page_row_sel(self, plan: WindowPlan, window: int,
-                      page: int) -> Optional[np.ndarray]:
-        """Sub-window compaction plan for one page (docs/fusion.md).
-
-        Intersects each shard's live ``merge_spans`` sub-ranges with the
-        page's owned span; if the widest shard's live row count, padded
-        to a power of two, is at most half the window, returns the
-        int32 [shards, wc] row list (-1 padding) that the grouped step
-        reads in place of the page's span. Otherwise (dead gaps too
-        small to pay for it) returns None and the page streams its span
-        as before.
-        """
-        if not plan.pruned or plan.shard_spans is None \
-                or plan.shard_bounds is None:
-            return None
-        per_shard: List[np.ndarray] = []
-        need = 0
-        for (start, end), spans in zip(plan.shard_bounds,
-                                       plan.shard_spans, strict=True):
-            plo = start + page * window
-            phi = min(plo + window, end)
-            segs = [np.arange(max(int(lo), plo), min(int(hi), phi),
-                              dtype=np.int64)
-                    for lo, hi in spans]
-            segs = [a for a in segs if a.size]
-            live = np.concatenate(segs) if segs \
-                else np.empty((0,), dtype=np.int64)
-            per_shard.append(live)
-            need = max(need, int(live.size))
-        wc = _pow2(max(need, 1))
-        if wc > window // 2:
-            return None
-        sel = np.full((len(per_shard), wc), -1, dtype=np.int32)
-        for s, live in enumerate(per_shard):
-            sel[s, :live.size] = live.astype(np.int32)
-        return sel
-
     def _launch_plan(
         self, tp: TriplePattern, patterns: List[List[TriplePattern]],
         plan: WindowPlan, count_only: bool = False,
@@ -1198,8 +1230,10 @@ class ShardedSelector:
             # runs of consecutive pages of one kind (spans or compact row
             # lists) keep the page order; each run goes in chunks
             runs: List[Tuple[bool, list]] = []
-            for page_idx in plan.pages:
-                row_sel = self._page_row_sel(plan, window, page_idx)
+            table = PageTable(plan, window, shards)
+            self._charge_pages(table)
+            for page_idx, row_sel in zip(plan.pages, table.row_lists(),
+                                         strict=True):
                 if row_sel is not None:
                     # sub-window compaction: gather only the live rows
                     wc = row_sel.shape[1]
@@ -1212,8 +1246,6 @@ class ShardedSelector:
                         cand_streamed=window, pat_slots=gpad * mp,
                         groups=g, pruned=plan.pruned, cand_full=window))
                 self.cuda.live_slots += live_g
-                self._charge_shard_page(plan, window, page_idx,
-                                        row_sel=row_sel)
                 compact = row_sel is not None
                 if not runs or runs[-1][0] != compact:
                     runs.append((compact, []))
@@ -1393,8 +1425,7 @@ class ShardedSelector:
                                  launches=len(plan.pages),
                                  rows=plan.candidate_rows,
                                  pages=len(plan.pages))
-            for page_idx in plan.pages:
-                self._charge_shard_page(plan, window, page_idx)
+            self._charge_pages(PageTable(plan, window, shards))
 
         # the pages of every round, round-major: (segment, page index)
         pages: List[Tuple[int, int]] = []

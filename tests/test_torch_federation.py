@@ -15,6 +15,8 @@ per-shard counters and ``shard_balance``.
   fused launches; servers on the sharded backend (paging, coalescing,
   the ``shards`` metrics section, the async front end's repartition);
 * ``plan_windows`` over four shards against the reference's planner;
+* ``PageTable`` against the reference's per-page helpers
+  (``_page_row_sel``, ``_charge_shard_page``) on hand-built plans;
 * four shards end to end: the JAX package under four forced host
   devices, in one subprocess, against the port's four logical shards on
   a manual placement with a replica range (the routed step), on a heat
@@ -515,6 +517,155 @@ class TestChunkedPlans:
         assert any(r.reclaimed_rows > 0 for r in tsel.launches)
         assert any(r.pruned and not r.reclaimed_rows
                    for r in tsel.launches)
+
+    def test_fused_many_bindings(self):
+        """Pruned segments whose groups carry 30 bindings each, so a
+        plan holds over a hundred spans: fused rounds in chunks of two
+        pages, then the same segments refused fusion by a dependency
+        (per-segment launches with compact pages)."""
+        # 500 subjects of 18 rows: predicates 1 and 2 once, 3 and 4 in
+        # blocks of 8, so 120 bound subjects prune a predicate's range
+        p = np.array([1, 2] + [3] * 8 + [4] * 8)
+        s = np.repeat(np.arange(500), p.size) + 10
+        arr = np.stack([s, np.tile(p, 500), np.arange(s.size) + 9000],
+                       axis=1).astype(np.int32)
+        rng = np.random.default_rng(29)
+        subjects = rng.permutation(500)[:240] + 10
+        om = [subjects[30 * k:30 * (k + 1), None].astype(np.int32)
+              for k in range(8)]
+
+        def run(pkg):
+            sel = selector(pkg, arr, window=16)
+            seg = pkg.ks.FusedSegment
+            res = sel.select_fused([
+                seg(pat(pkg.core, V(0), 3, V(1)), om[:4]),
+                seg(pat(pkg.core, V(0), 4, V(1)), om[4:7]),
+                seg(pat(pkg.core, V(0), 1, V(1)), om[7:], count_only=True)])
+            res += sel.select_fused([
+                seg(pat(pkg.core, V(0), 3, V(1)), om[4:]),
+                seg(pat(pkg.core, V(0), 4, V(1)), om[:4],
+                    depends_on=(0,))])
+            return sel, [[frag(r) for r in row] for row in res]
+
+        tsel = assert_same(run)
+        insts = [pat(tcore, int(b), 3, V(1)) for o in om[:4] for b in o[:, 0]]
+        plan = tsel.fed.plan_windows(pat(tcore, V(0), 3, V(1)), insts, 16)
+        assert plan.pruned and len(plan.shard_spans[0]) >= 100
+        assert any(r.segments >= 2 for r in tsel.launches)
+        assert any(r.reclaimed_rows > 0 for r in tsel.launches)
+        assert tsel.fused_chunks > 1 and tsel.grouped_chunks > 1
+
+
+# -- the page table against the reference's per-page helpers ------------------
+
+
+def window_plan(pkg, bounds, spans, pages, pruned=True):
+    return pkg.fed.WindowPlan(
+        order="spo", lo_key=0, hi_key=0, pages=list(pages), range_rows=0,
+        candidate_rows=0, pruned=pruned, pages_total=0,
+        shard_bounds=list(bounds),
+        shard_spans=None if spans is None else [
+            np.asarray(x, np.int64).reshape(-1, 2) for x in spans])
+
+
+def random_spans(rng, start, end, k):
+    """Up to ``k`` merged sub-ranges of [start, end)."""
+    from repro.core.store import merge_spans
+    if end <= start:
+        return np.empty((0, 2), np.int64)
+    a = rng.integers(start, end, size=k)
+    b = np.minimum(a + rng.integers(1, 6, size=k), end)
+    return merge_spans(np.stack([a, b], axis=1))
+
+
+def _random_plan(seed, window):
+    rng = np.random.default_rng(seed)
+    bounds = [(0, 700), (40, 41), (300, 300), (5, 333)]
+    spans = [random_spans(rng, a, b, 150) for a, b in bounds]
+    pages = sorted({(lo - a) // window for (a, _), sp in zip(bounds, spans)
+                    for lo in sp[:, 0]})
+    return bounds, spans, pages
+
+
+PAGE_TABLE_CASES = {
+    # spans crossing page bounds, a last partial page (range 0..38)
+    "crossing": (16, [(0, 38)], [[(3, 12), (14, 30), (33, 38)]], range(3)),
+    # a range shorter than the window: its first page is its last
+    "short_range": (16, [(5, 17), (0, 64)], [[(6, 9)], [(2, 40)]], [0, 1]),
+    # a shard with an empty range beside shards with work
+    "empty_shard": (8, [(10, 10), (0, 30), (7, 29)],
+                    [[], [(0, 2), (9, 11), (25, 30)], [(7, 9), (20, 29)]],
+                    [0, 1, 2, 3]),
+    "window_1": (1, [(0, 6), (3, 5)], [[(1, 3), (4, 6)], [(3, 4)]],
+                 range(6)),
+    "window_above_range": (64, [(0, 20), (11, 40)],
+                           [[(0, 3), (7, 9)], [(11, 12), (30, 40)]], [0]),
+    # widest shard 8 live rows: wc 8 = 16 // 2, compact
+    "width_half_window": (16, [(0, 32), (0, 16)],
+                          [[(0, 8), (20, 24)], [(3, 5)]], [0, 1]),
+    # widest shard 9 live rows: wc 16 > 16 // 2, the page streams
+    "width_above_half": (16, [(0, 32), (0, 16)],
+                         [[(0, 9), (20, 24)], [(3, 5)]], [0, 1]),
+    # an odd window: half of 12 is 6, so only wc 4 and below compact
+    "odd_window": (12, [(0, 36)], [[(0, 4), (13, 18), (24, 26)]],
+                   range(3)),
+    "unpruned": (8, [(0, 30), (4, 4), (2, 9)], None, range(4)),
+    "pages_past_a_range": (4, [(0, 40), (0, 6)],
+                           [[(1, 2), (30, 39)], [(0, 6)]], [0, 1, 7, 9]),
+}
+
+
+@pytest.mark.parametrize("case", [*PAGE_TABLE_CASES, "random_w16",
+                                  "random_w64", "random_pruned_no_spans"])
+def test_page_table_matches_per_page_reference(case):
+    """``PageTable`` against the JAX package's per-page helpers: each
+    page's compact row list (dtype, shape and bytes, or None) and the
+    three shard counters, charged as ``_launch_plan`` charges (with the
+    row list) and as the fused path does (without)."""
+    pruned = True
+    if case.startswith("random"):
+        window = 64 if case == "random_w64" else 16
+        bounds, spans, pages = _random_plan(len(case), window)
+        if case == "random_pruned_no_spans":
+            spans = None
+    else:
+        window, bounds, spans, pages = PAGE_TABLE_CASES[case]
+        pruned = spans is not None
+    jplan = window_plan(JAX, bounds, spans, pages, pruned)
+    tplan = window_plan(TORCH, bounds, spans, pages, pruned)
+    shards = len(bounds)
+
+    def counters_ns():
+        return types.SimpleNamespace(**{
+            k: np.zeros((shards,), np.int64)
+            for k in ("shard_launches", "shard_rows", "shard_pages")})
+
+    want_sels = [jfed.ShardedSelector._page_row_sel(None, jplan, window, p)
+                 for p in pages]
+    grouped, fused = counters_ns(), counters_ns()
+    for p, sel in zip(pages, want_sels):
+        jfed.ShardedSelector._charge_shard_page(grouped, jplan, window, p,
+                                                row_sel=sel)
+        jfed.ShardedSelector._charge_shard_page(fused, jplan, window, p)
+
+    table = tfed.PageTable(tplan, window, shards)
+    got_sels = table.row_lists()
+    assert len(got_sels) == len(want_sels)
+    for got, want in zip(got_sels, want_sels):
+        assert (got is None) == (want is None)
+        if want is not None:
+            assert (got.dtype, got.shape) == (want.dtype, want.shape)
+            assert got.tobytes() == want.tobytes()
+    got = counters_ns()
+    tfed.ShardedSelector._charge_pages(got, table)
+    for want in (grouped, fused):
+        for k in ("shard_launches", "shard_rows", "shard_pages"):
+            np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
+    compact = [sel is not None for sel in got_sels]
+    if case == "crossing":
+        assert compact == [False, False, True]
+    if case.startswith("width_"):
+        assert compact[0] == (case == "width_half_window")
 
 
 # -- servers on the sharded backend ------------------------------------------
