@@ -21,6 +21,8 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
+from . import rowkeys
+
 # Entity classes in id order, and the name each id has: ``user{i}`` ...;
 # ratings are named from 1.
 ENTITIES = ("user", "product", "review", "retailer", "genre", "city", "tag",
@@ -33,7 +35,10 @@ PREDICATES = ("type", "likes", "friendOf", "livesIn", "hasGenre", "hasTag",
               "soldBy", "reviewsProduct", "hasAuthor", "hasRating")
 CLASSES = ("User", "Product", "Review", "Retailer")
 
-_BITS = 21
+# The triples are int32: ids 0 .. MAX_TERMS - 1.
+MAX_TERMS = (1 << 31) - 1
+# The least width of a field of the three-field key.
+KEY_FIELD_BITS = 21
 
 
 def sorted_distinct(keys: np.ndarray) -> np.ndarray:
@@ -67,9 +72,9 @@ class Layout:
         nxt += len(PREDICATES)
         self.cls = {c: nxt + i for i, c in enumerate(CLASSES)}
         self.num_terms = nxt + len(CLASSES)
-        if self.num_terms > (1 << _BITS) - 1:
-            raise ValueError(f"{self.num_terms} terms exceed the store's "
-                             f"{_BITS}-bit term ids")
+        if self.num_terms > MAX_TERMS:
+            raise ValueError(f"{self.num_terms} terms exceed the "
+                             f"{MAX_TERMS} that int32 triples hold")
 
     def terms(self) -> List[str]:
         """Every term's name, in id order."""
@@ -161,14 +166,23 @@ def generate(scale: Dict[str, float], seed: int) -> Tuple[np.ndarray, Layout]:
     add(revs, pr["hasRating"], f["rating"] + rng.integers(RATINGS, size=nr))
     add(rets, pr["type"], np.full(len(rets), cl["Retailer"]))
 
-    keys = np.concatenate([
-        (s.astype(np.int64) << (2 * _BITS)) | (p << _BITS) | o.astype(np.int64)
-        for s, p, o in parts])
-    keys = sorted_distinct(keys)
-    mask = (1 << _BITS) - 1
-    triples = np.stack([keys >> (2 * _BITS), (keys >> _BITS) & mask,
-                        keys & mask], axis=1).astype(np.int32)
-    return triples, lay
+    bits = max(KEY_FIELD_BITS, (lay.num_terms - 1).bit_length())
+    if 3 * bits <= rowkeys.KEY_BITS:
+        # ids of 21 bits (every configuration here): three equal fields
+        # in one key, the cheapest sort
+        keys = sorted_distinct(np.concatenate([
+            (s.astype(np.int64) << (2 * bits)) | (p << bits)
+            | o.astype(np.int64) for s, p, o in parts]))
+        mask = (1 << bits) - 1
+        triples = np.stack([keys >> (2 * bits), (keys >> bits) & mask,
+                            keys & mask], axis=1).astype(np.int32)
+        return triples, lay
+    cols = [np.concatenate([s for s, _, _ in parts], dtype=np.int32),
+            np.concatenate([np.full(len(s), p, dtype=np.int32)
+                            for s, p, _ in parts]),
+            np.concatenate([o for _, _, o in parts], dtype=np.int32)]
+    del parts[:]
+    return np.stack(rowkeys.sorted_rows(cols, distinct=True), axis=1), lay
 
 
 # ---------------------------------------------------------------------------

@@ -49,9 +49,10 @@ BENCH = Path(__file__).resolve().parent
 # whole).
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 GRACE_S = 60.0
-# The traced run profiles the last PROFILE_S seconds of its window (at
-# most half of it): a bounded trace, held in memory but for one
-# temporary file that is read for its copy bytes and deleted.
+# The traced run profiles the last PROFILE_S seconds of its window, or
+# the mix's ``profile_seconds`` (at most half of the window): a bounded
+# trace, held in memory but for one temporary file that is read for its
+# copy bytes and deleted.
 PROFILE_S = 4.0
 
 
@@ -150,6 +151,19 @@ class RunData:
 
     def requests_between(self, lo: float, hi: float) -> int:
         return sum(1 for _, t, _, _ in self.log if lo <= t <= hi)
+
+
+def own_spans_line(t0: float, t1: float) -> str:
+    """How many of the port's own spans (``repro_torch.core.trace``) and
+    flushes ended in ``[t0, t1]``, and how many its ring dropped."""
+    try:
+        from repro_torch.core.metrics import TRACE
+    except ImportError:
+        return "no own spans"
+    spans = TRACE.spans(t0, t1)
+    flushes = sum(s.name == "flush" for s in spans)
+    return (f"own spans: {len(spans)} ended in the profile, {flushes} "
+            f"flushes, {TRACE.dropped()} dropped")
 
 
 def device_facts(torch, device: str) -> dict:
@@ -297,7 +311,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         t_end = state["t1"] = t0 + seconds
         loop.call_later(seconds, close)
         if prof is not None:
-            loop.call_later(max(seconds - PROFILE_S, seconds / 2),
+            profile_s = float(mix.get("profile_seconds", PROFILE_S))
+            loop.call_later(max(seconds - profile_s, seconds / 2),
                             prof.start)
         tasks = [asyncio.ensure_future(client_loop(c, t_end))
                  for c in range(n_clients)]
@@ -355,7 +370,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         inst = state["instruments"]
         run.profile = prof.read(inst.launches, inst.spans, kernels)
         run.profile_t0, run.profile_t1 = prof.t0, prof.t1
-        log(f"profile: {summary_line(run.profile)}")
+        log(f"profile: {summary_line(run.profile)}; "
+            f"{own_spans_line(prof.t0, prof.t1)}")
         device_out.update(busy_s=run.profile["busy_s"],
                           window_s=run.profile["window_s"])
         breakdown = {"device_ops": run.profile["device_ops"],

@@ -24,30 +24,25 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-_BITS = 21
-_MAX = (1 << _BITS) - 1
+from . import rowkeys
+
 ORDERS = (("spo", (0, 1, 2)), ("pos", (1, 2, 0)), ("osp", (2, 0, 1)))
 UNBOUND = -1
 
 
-def _pack(cols) -> np.ndarray:
-    a, b, c = (np.asarray(x, dtype=np.int64) for x in cols)
-    return (a << (2 * _BITS)) | (b << _BITS) | c
-
-
 class ReferenceStore:
-    """Three sorted permutations of a set of triples."""
+    """Three sorted permutations of a set of triples (term ids up to
+    2**31 - 1), each held as its three columns in key order."""
 
     def __init__(self, triples: np.ndarray) -> None:
-        t = np.asarray(triples, dtype=np.int64).reshape(-1, 3)
-        t = np.sort(_pack(t.T))
-        t = t[np.concatenate(([True], t[1:] != t[:-1]))] if t.size else t
-        t = np.stack([t >> (2 * _BITS), (t >> _BITS) & _MAX, t & _MAX],
-                     axis=1)
-        self.triples = t.astype(np.int32)
-        self.keys: Dict[str, np.ndarray] = {}
-        for name, order in ORDERS:
-            self.keys[name] = np.sort(_pack([t[:, i] for i in order]))
+        t = np.asarray(triples).reshape(-1, 3)
+        cols = rowkeys.sorted_rows(list(t.T), distinct=True)
+        self.triples = np.stack(cols, axis=1)
+        # the distinct rows are in SPO order already
+        self.cols: Dict[str, List[np.ndarray]] = {
+            name: cols if name == "spo" else
+            rowkeys.sorted_rows([cols[i] for i in order])
+            for name, order in ORDERS}
 
     @staticmethod
     def _index(pattern) -> Tuple[str, Tuple[int, int, int], int]:
@@ -63,27 +58,30 @@ class ReferenceStore:
         return best
 
     def _range(self, pattern):
+        """The columns of the pattern's bound-prefix range, narrowed one
+        bound component at a time, and the permutation's order."""
         name, order, plen = self._index(pattern)
-        keys = self.keys[name]
-        lo_cols = [pattern[order[i]] if i < plen else 0 for i in range(3)]
-        hi_cols = [pattern[order[i]] if i < plen else _MAX for i in range(3)]
-        lo = int(np.searchsorted(keys, _pack(lo_cols), side="left"))
-        hi = int(np.searchsorted(keys, _pack(hi_cols), side="right"))
-        return keys[lo:hi], order
+        cols = self.cols[name]
+        lo, hi = 0, cols[0].shape[0]
+        for i in range(plen):
+            # an int32 value: a Python int would cast the column to int64
+            col, v = cols[i][lo:hi], np.int32(pattern[order[i]])
+            lo, hi = (lo + int(np.searchsorted(col, v, side="left")),
+                      lo + int(np.searchsorted(col, v, side="right")))
+        return [c[lo:hi] for c in cols], order
 
     def range_size(self, pattern) -> int:
         """Rows of the pattern's bound-prefix range (at least its
         matches)."""
-        return int(self._range([int(x) for x in pattern])[0].shape[0])
+        return int(self._range([int(x) for x in pattern])[0][0].shape[0])
 
     def match(self, pattern) -> np.ndarray:
         """int32 ``[M, 3]`` triples matching ``pattern`` (constants >= 0,
         variables < 0, a repeated variable binds equal components), in
         the chosen permutation's order."""
         pattern = [int(x) for x in pattern]
-        k, order = self._range(pattern)
-        cols = [k >> (2 * _BITS), (k >> _BITS) & _MAX, k & _MAX]
-        rows = np.empty((k.shape[0], 3), dtype=np.int32)
+        cols, order = self._range(pattern)
+        rows = np.empty((cols[0].shape[0], 3), dtype=np.int32)
         for i, comp in enumerate(order):
             rows[:, comp] = cols[i]
         keep = np.ones(rows.shape[0], dtype=bool)
@@ -128,7 +126,7 @@ def first_occurrences(streams: List[np.ndarray]) -> np.ndarray:
     occurs."""
     cat = np.concatenate(streams) if streams else np.empty((0, 3), np.int32)
     if len(streams) > 1 and cat.shape[0]:
-        _, first = np.unique(_pack(cat.T), return_index=True)
+        _, first = np.unique(rowkeys.keys(list(cat.T)), return_index=True)
         cat = cat[np.sort(first)]
     return cat.astype(np.int32)
 
@@ -198,16 +196,10 @@ def _join(pattern, rows: np.ndarray, sols: np.ndarray,
         if c < 0:
             var_pos.setdefault(-int(c) - 1, comp)
     shared = sorted(set(var_pos) & bound)
-
-    def key(cols) -> np.ndarray:
-        k = np.zeros(cols[0].shape[0] if cols else 0, dtype=np.int64)
-        for col in cols:
-            k = (k << _BITS) | col.astype(np.int64)
-        return k
-
     if shared:
-        row_key = key([rows[:, var_pos[v]] for v in shared])
-        sol_key = key([sols[:, v] for v in shared])
+        key = rowkeys.keys([np.concatenate([rows[:, var_pos[v]], sols[:, v]])
+                            for v in shared])
+        row_key, sol_key = key[:rows.shape[0]], key[rows.shape[0]:]
     else:
         row_key = np.zeros(rows.shape[0], np.int64)
         sol_key = np.zeros(sols.shape[0], np.int64)

@@ -157,7 +157,7 @@ def test_nothing_imports_jax_or_the_jax_package_by_top_level_name():
     assert "repro_torch".split(".")[0] not in FORBIDDEN
 
 
-@pytest.mark.parametrize("name", ["reference.py", "check.py",
+@pytest.mark.parametrize("name", ["reference.py", "check.py", "rowkeys.py",
                                   "datagen.py", "stats.py"])
 def test_the_yardstick_imports_nothing_of_the_program(name):
     assert "repro_torch" not in set(_imports(ROOT / "bench" / name))
