@@ -45,12 +45,12 @@ from .kernel_selectors import (_EMPTY, FusedSegment, LaunchRecord,
                                finish_segment, fusion_legality,
                                grouped_results, live_slot_count,
                                marshal_pattern_grid, record_fragments,
-                               select_block_numpy, stream_order)
-from .metrics import CudaWork
+                               rows_back, select_block_numpy, stream_order)
+from .metrics import STORE_BUILD, CudaWork
 from .placement import HeatLog, Placement
 from .rdf import TriplePattern, is_var
 from .selectors import instantiate_patterns
-from .store import _ORDERS, _pack
+from .store import _ORDERS, KeyLayout, TripleStore, merge_spans
 
 # Default per-shard window: one launch streams this many candidate rows
 # per shard. The reference sized it as 8 x 128 TPU VPU sublane x lane
@@ -182,8 +182,9 @@ class FederatedStore:
     """Triple store split into ``shards`` logical shards on one device
     (one shard = one federation member, the reference's one device).
 
-    Each shard keeps its partition sorted with packed int64 keys in all
-    three component orders -- SPO plus the POS/OSP mirrors (every
+    Each shard keeps its partition sorted with int64 keys (``layout``,
+    the key layout of the store it was built from) in all three
+    component orders -- SPO plus the POS/OSP mirrors (every
     federation member is an HDT-style server with HDT's three indexes).
     The mirrors are what let unbound-subject patterns (``(?s, p, ?o)``,
     ``(?s, ?p, o)``) binary-search a narrow shard-local range instead of
@@ -214,6 +215,8 @@ class FederatedStore:
     # rebuild under new boundaries without a device gather.
     host_triples: Optional[np.ndarray] = dataclasses.field(
         default=None, repr=False)
+    layout: KeyLayout = dataclasses.field(default_factory=KeyLayout.narrow,
+                                          repr=False)
 
     @property
     def nbytes(self) -> int:
@@ -222,51 +225,62 @@ class FederatedStore:
 
     @classmethod
     def _assemble(cls, triples_np, shards, device, shard_n, indexes,
-                  placement=None) -> "FederatedStore":
+                  layout, placement=None) -> "FederatedStore":
         spo = indexes["spo"]
         return cls(shards=shards, device=device, triples=spo.triples,
                    valid=spo.valid, keys=spo.keys, shard_n=shard_n,
                    indexes=indexes, placement=placement,
-                   host_triples=np.asarray(triples_np))
+                   host_triples=np.asarray(triples_np), layout=layout)
 
     @classmethod
     def build(cls, triples_np: np.ndarray, shards: int = 1,
               device=None,
-              placement: Optional[Placement] = None) -> "FederatedStore":
+              placement: Optional[Placement] = None,
+              layout: Optional[KeyLayout] = None) -> "FederatedStore":
         """Split ``triples_np`` into ``shards`` logical shards on
-        ``device`` (``None`` means CUDA, and raises without it)."""
+        ``device`` (``None`` means CUDA, and raises without it), keyed by
+        ``layout`` (the ``TripleStore``'s; None: the triples' own,
+        ``KeyLayout.of``). Records its phases in
+        :data:`~repro_torch.core.metrics.STORE_BUILD`."""
         device = kops.resolve_device(device)
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
+        clock = STORE_BUILD.phases("device")
+        if layout is None:
+            layout = KeyLayout.of(triples_np)
         if placement is not None:
-            return cls._build_placed(triples_np, shards, device, placement)
+            return cls._build_placed(triples_np, shards, device, placement,
+                                     layout, clock)
         n = triples_np.shape[0]
         shard_n = max(1, -(-n // shards))
         total = shard_n * shards
         base = np.full((total, 3), -1, dtype=np.int32)
         base[:n] = triples_np
-        base_valid = np.zeros((total,), dtype=bool)
-        base_valid[:n] = True
-        rows = np.arange(shards)[:, None]
+        # the real rows come first in each shard, then its padding rows
+        valid = (np.arange(total) < n).reshape(shards, shard_n)
         indexes: Dict[str, ShardIndex] = {}
-        for name, comp_order in _ORDERS.items():
-            # per-shard stable sort under this order's packed key
-            # (padding rows key to +inf -> sort last)
-            keys = np.where(
-                base_valid,
-                _pack(base[:, comp_order[0]], base[:, comp_order[1]],
-                      base[:, comp_order[2]]),
-                _PAD_KEY).reshape(shards, shard_n)
-            order = np.argsort(keys, axis=1, kind="stable")
-            indexes[name] = ShardIndex.on_device(
-                name, base.reshape(shards, shard_n, 3)[rows, order],
-                base_valid.reshape(shards, shard_n)[rows, order],
-                np.take_along_axis(keys, order, axis=1), device)
-        return cls._assemble(triples_np, shards, device, shard_n, indexes)
+        for name in _ORDERS:
+            # per-shard sort under this order's packed key: a key holds
+            # its row, so the sorted keys unpack into the sorted rows
+            # (padding rows key to +inf -> sort last, and unpack to -1)
+            keys = np.where(valid.reshape(-1), layout.pack(base, name),
+                            _PAD_KEY).reshape(shards, shard_n)
+            keys.sort(axis=1)
+            rows = layout.unpack(keys.reshape(-1), name).reshape(
+                shards, shard_n, 3)
+            rows[~valid] = -1
+            clock.mark(name)
+            indexes[name] = ShardIndex.on_device(name, rows, valid, keys,
+                                                 device)
+            del rows
+            clock.mark("copy")
+        return cls._assemble(triples_np, shards, device, shard_n, indexes,
+                             layout)
 
     @classmethod
     def _build_placed(cls, triples_np: np.ndarray, shards: int, device,
-                      placement: Placement) -> "FederatedStore":
+                      placement: Placement, layout: KeyLayout,
+                      clock) -> "FederatedStore":
         """Build under workload-aware boundaries + replicated ranges.
 
         Per order, each triple's packed key is assigned to the shard
@@ -280,10 +294,8 @@ class FederatedStore:
         of binary searches.
         """
         per_order_rows: Dict[str, List[np.ndarray]] = {}
-        for name, comp_order in _ORDERS.items():
-            keys = _pack(triples_np[:, comp_order[0]],
-                         triples_np[:, comp_order[1]],
-                         triples_np[:, comp_order[2]])
+        for name in _ORDERS:
+            keys = layout.pack(triples_np, name)
             bounds = placement.boundaries.get(name)
             if bounds is not None and len(bounds) == shards - 1:
                 assign = np.searchsorted(
@@ -307,25 +319,27 @@ class FederatedStore:
                         rows[rs] = np.concatenate([rows[rs], block],
                                                   axis=0)
             per_order_rows[name] = rows
+            clock.mark(name)
         shard_n = max(1, max(r.shape[0] for rows in per_order_rows.values()
                              for r in rows))
         indexes: Dict[str, ShardIndex] = {}
-        for name, comp_order in _ORDERS.items():
+        for name in _ORDERS:
             padded = np.full((shards, shard_n, 3), -1, dtype=np.int32)
             valid = np.zeros((shards, shard_n), dtype=bool)
             keys = np.full((shards, shard_n), _PAD_KEY, dtype=np.int64)
             for s, block in enumerate(per_order_rows[name]):
                 m = block.shape[0]
-                k = _pack(block[:, comp_order[0]], block[:, comp_order[1]],
-                          block[:, comp_order[2]])
+                k = layout.pack(block, name)
                 order = np.argsort(k, kind="stable")
                 padded[s, :m] = block[order]
                 valid[s, :m] = True
                 keys[s, :m] = k[order]
+            clock.mark(name)
             indexes[name] = ShardIndex.on_device(name, padded, valid, keys,
                                                  device)
+            clock.mark("copy")
         return cls._assemble(triples_np, shards, device, shard_n, indexes,
-                             placement=placement)
+                             layout, placement=placement)
 
     def repartition(self, heat: HeatLog, **plan_kwargs) -> "FederatedStore":
         """Rebuild with workload-aware boundaries planned from ``heat``.
@@ -340,10 +354,11 @@ class FederatedStore:
                 "host triples unavailable; the store was not built via "
                 "FederatedStore.build")
         placement = plan_placement(
-            heat, dataset_keys(self.host_triples), self.shards,
+            heat, dataset_keys(self.host_triples, self.layout), self.shards,
             **plan_kwargs)
         return FederatedStore.build(self.host_triples, self.shards,
-                                    device=self.device, placement=placement)
+                                    device=self.device, placement=placement,
+                                    layout=self.layout)
 
     # -- host-side request marshalling ---------------------------------------
 
@@ -370,29 +385,16 @@ class FederatedStore:
         )
         return pats, valid, base_vec
 
-    @staticmethod
-    def prefix_keys(tp: TriplePattern,
+    def prefix_keys(self, tp: TriplePattern,
                     order_name: str = "spo") -> Tuple[int, int]:
         """(lo_key, hi_key) of the pattern's bound prefix under the
-        given index order -- the host-computed range bounds every shard
-        binary-searches (the client computing a page URL, in federation
-        terms). Defaults to the SPO mirror for compatibility with the
+        given index order and the store's key layout -- the
+        host-computed range bounds every shard binary-searches (the
+        client computing a page URL, in federation terms); a bound
+        constant outside its field gives ``store.EMPTY_BOUNDS``.
+        Defaults to the SPO mirror for compatibility with the
         single-request windowed path."""
-        from .store import _MAX_ID, _ORDERS, _pack
-        comp_order = _ORDERS[order_name]
-        comps = tp.as_tuple()
-        prefix = []
-        for pos in comp_order:
-            if is_var(comps[pos]):
-                break
-            prefix.append(comps[pos])
-        lo_vals = prefix + [0] * (3 - len(prefix))
-        hi_vals = prefix + [_MAX_ID] * (3 - len(prefix))
-        lo = int(_pack(np.int64(lo_vals[0]), np.int64(lo_vals[1]),
-                       np.int64(lo_vals[2])))
-        hi = int(_pack(np.int64(hi_vals[0]), np.int64(hi_vals[1]),
-                       np.int64(hi_vals[2])))
-        return lo, hi
+        return self.layout.pattern_bounds(tp, order_name)
 
     # -- host-side launch planning (Omega-restricted window skip) ------------
 
@@ -417,8 +419,6 @@ class FederatedStore:
         ``pages``. Skipping whole pages never reorders or duplicates
         anything, so parity is untouched.
         """
-        from .store import (TripleStore, _ORDERS, merge_spans,
-                            prefix_interval_keys)
         window = max(1, min(int(window), self.shard_n))
 
         def base_plan(order_name: str) -> WindowPlan:
@@ -458,7 +458,7 @@ class FederatedStore:
         if iplen <= base_plen:
             return unpruned
         comps = np.asarray([p.as_tuple() for p in insts], dtype=np.int64)
-        lo_keys, hi_keys = prefix_interval_keys(comps, comp_order, iplen)
+        lo_keys, hi_keys = self.layout.prefix_bounds(comps, iname, iplen)
         # base range under the insts' index (already computed when the
         # instantiations' best order is the base pattern's own)
         shell = unpruned if iname == bname else base_plan(iname)
@@ -1166,7 +1166,7 @@ class ShardedSelector:
                 cand_streamed=int(block.shape[0]), pat_slots=0, groups=g,
                 pruned=plan.pruned, cand_full=plan.range_rows,
                 fast_path=True))
-            return select_block_numpy(block, tp, patterns,
+            return select_block_numpy(block, tp, patterns, self.fed.layout,
                                       count_only=count_only)
 
         # pad the grid to bucketed shapes (the reference's geometry):
@@ -1196,6 +1196,7 @@ class ShardedSelector:
                 index, slots_d, bv_d, live, g, width,
                 count_only=count_only, **where)
             cnt_total[:] += cnts
+            self.cuda.rows_back += rows_back([per_group])
             for gi, (rows_g, first_g) in enumerate(per_group):
                 if rows_g.shape[0]:
                     kept[gi].append(rows_g)
@@ -1287,7 +1288,8 @@ class ShardedSelector:
                 continue
             full = np.concatenate(kept[gi], axis=0)
             first_g = np.concatenate(firsts[gi], axis=0)
-            out.append((stream_order(full, first_g, patterns[gi]),
+            out.append((stream_order(full, first_g, patterns[gi],
+                                     self.fed.layout),
                         int(cnt_total[gi])))
         return out
 
@@ -1344,6 +1346,7 @@ class ShardedSelector:
                     groups=len(live), pruned=plan.pruned,
                     cand_full=plan.range_rows, fast_path=True))
                 fresh = select_block_numpy(block, seg.tp, pats_live,
+                                           self.fed.layout,
                                            count_only=seg.count_only)
                 _trace.phase("serve")
                 finish_segment(self.fragments, seg, omegas_live, fresh,
@@ -1476,6 +1479,7 @@ class ShardedSelector:
                 torch.stack([lo, hi], dim=-1), seg_d.to(torch.int32),
                 gathered=gathered, count_only=all(only_counts))
             cnt_total += cnts
+            self.cuda.rows_back += rows_back(per_seg)
             for wi, per_group in enumerate(per_seg):
                 for gi, (rows_g, first_g) in enumerate(per_group):
                     if rows_g.shape[0]:
@@ -1494,8 +1498,8 @@ class ShardedSelector:
                     continue
                 full = np.concatenate(kept[wi][gi], axis=0)
                 first_g = np.concatenate(firsts[wi][gi], axis=0)
-                fresh.append((stream_order(full, first_g,
-                                           pats_live[gi]), cnt))
+                fresh.append((stream_order(full, first_g, pats_live[gi],
+                                           self.fed.layout), cnt))
             _trace.phase("serve")
             finish_segment(self.fragments, seg, omegas_live, fresh,
                            results[si], live_g)

@@ -59,7 +59,7 @@ from .metrics import CudaWork
 from .rdf import TriplePattern, is_var
 from . import trace as _trace
 from .selectors import instantiate_patterns
-from .store import _ORDERS, TripleStore, _pack
+from .store import KeyLayout, TripleStore
 
 # Candidate blocks are padded to power-of-two multiples of the kernel's
 # candidate tile: the JAX package's geometry (it bounds that package's
@@ -210,6 +210,12 @@ def grouped_results(mask, first, cnt, groups: int, count_only: bool,
     return host[:n_cnt].view(np.int64).reshape(segments, groups), kept
 
 
+def rows_back(kept: List[List[Tuple]]) -> int:
+    """The kept rows that :func:`grouped_results` copied back in
+    ``kept``."""
+    return sum(cols.shape[0] for seg in kept for cols, _first in seg)
+
+
 @dataclasses.dataclass
 class LaunchRecord:
     """Geometry/accounting of one grouped kernel launch.
@@ -315,7 +321,8 @@ def live_slot_count(valid: np.ndarray) -> int:
 
 
 def stream_order(kept: np.ndarray, first: np.ndarray,
-                 insts: List[TriplePattern]) -> np.ndarray:
+                 insts: List[TriplePattern],
+                 layout: KeyLayout) -> np.ndarray:
     """Reorder kept rows into the numpy selector's sequence order.
 
     The numpy selector concatenates per-pattern match streams in
@@ -323,18 +330,34 @@ def stream_order(kept: np.ndarray, first: np.ndarray,
     lands in the stream of the first pattern it matches, and within
     a stream rows ascend by packed key under that pattern's chosen
     index. ``first`` (from the kernel) gives the stream; the packed
-    key is recomputed here for the kept rows only. Shared by the
+    key (the store's ``layout``) is recomputed here for the kept rows
+    only. The rows are grouped by stream (a stable sort of ``first``);
+    a key holds its whole row, so each stream's keys are sorted in
+    place and unpacked into its rows, all at once where every stream
+    keys by one index. Shared by the
     single-host kernel selector and the sharded windowed selector --
     it is what makes both byte-identical to the oracle.
     """
-    sortkey = np.empty(kept.shape[0], dtype=np.int64)
-    for j in np.unique(first):
-        name, _ = TripleStore._choose_index(insts[j])
-        order = _ORDERS[name]
-        sel = first == j
-        sortkey[sel] = _pack(kept[sel, order[0]], kept[sel, order[1]],
-                             kept[sel, order[2]])
-    return kept[np.lexsort((sortkey, first))]
+    if kept.shape[0] == 0:
+        return kept
+    counts = np.bincount(first)
+    streams = np.flatnonzero(counts)
+    counts = counts[streams]
+    names = [TripleStore._choose_index(insts[j])[0] for j in streams]
+    if len(streams) > 1:
+        kept = kept[np.argsort(first, kind="stable")]
+    ends = np.cumsum(counts)
+    if len(set(names)) == 1:
+        keys = layout.pack(kept, names[0])
+        for lo, hi in zip(ends - counts, ends):
+            keys[lo:hi].sort()
+        return layout.unpack(keys, names[0], kept.dtype)
+    out = np.empty_like(kept)
+    for name, lo, hi in zip(names, ends - counts, ends):
+        keys = layout.pack(kept[lo:hi], name)
+        keys.sort()
+        out[lo:hi] = layout.unpack(keys, name, kept.dtype)
+    return out
 
 
 def consult_fragments(
@@ -434,7 +457,7 @@ def finish_segment(
 def select_block_numpy(
     block: np.ndarray, tp: TriplePattern,
     patterns: Sequence[List[TriplePattern]],
-    count_only: bool = False,
+    layout: KeyLayout, count_only: bool = False,
 ) -> List[Tuple[np.ndarray, int]]:
     """Numpy evaluation of G grouped selections over one candidate block.
 
@@ -478,7 +501,7 @@ def select_block_numpy(
             continue
         kept = block[keep]
         first = np.argmax(comp[keep], axis=1)    # first matching pattern
-        out.append((stream_order(kept, first, list(insts)), cnt))
+        out.append((stream_order(kept, first, list(insts), layout), cnt))
     return out
 
 
@@ -653,6 +676,7 @@ class KernelSelector:
                 if block is None:
                     block = rng.triples
                 fresh = select_block_numpy(block, seg.tp, pats_live,
+                                           self.store.layout,
                                            count_only=seg.count_only)
                 _trace.phase("serve")
                 self._finish_segment(seg, omegas_live, fresh,
@@ -740,6 +764,7 @@ class KernelSelector:
             mask, first, cnt, g_pad, not any(gathered),
             payload=lambda c: c[:, 3:4] + spans_d[c[:, 0], 0, :1],
             seg_of_page=seg_of_page, segments=s)
+        self.cuda.rows_back += rows_back(kept)
         for wi, (si, pats_live, omegas_live, live_g, _b, _t, _pr, _full) \
                 in enumerate(work):
             _trace.phase("order")
@@ -752,7 +777,8 @@ class KernelSelector:
                     continue
                 pos, first_g = kept[wi][gi]
                 fresh.append((stream_order(cand[pos[:, 0]], first_g,
-                                           pats_live[gi]), cnt_g))
+                                           pats_live[gi], self.store.layout),
+                               cnt_g))
             _trace.phase("serve")
             self._finish_segment(seg, omegas_live, fresh, results[si],
                                  live_g)
@@ -811,7 +837,7 @@ class KernelSelector:
                 pruned=pruned, cand_full=full, fast_path=True))
             if not pruned:
                 block = rng.triples
-            return select_block_numpy(block, tp, patterns,
+            return select_block_numpy(block, tp, patterns, self.store.layout,
                                       count_only=count_only)
 
         if not pruned:
@@ -856,6 +882,7 @@ class KernelSelector:
                          cand_rows=t, full_rows=full))
         cnts, kept = grouped_results(mask, first, cnt, g, count_only,
                                      payload=lambda c: c[:, 3:4])
+        self.cuda.rows_back += rows_back(kept)
         cnts, kept = cnts[0], kept[0] if kept else None
         _trace.phase("order")
         out: List[Tuple[np.ndarray, int]] = []
@@ -872,4 +899,4 @@ class KernelSelector:
 
     def _stream_order(self, kept: np.ndarray, first: np.ndarray,
                       insts: List[TriplePattern]) -> np.ndarray:
-        return stream_order(kept, first, insts)
+        return stream_order(kept, first, insts, self.store.layout)

@@ -29,11 +29,15 @@ app's per-route section and of the chaos run's outcome
 :data:`TRACE` is the serving path's span recorder (``core/trace.py``):
 one id per request, the host phases of each flush, recorded only while
 a ``torch.profiler`` session is on (docs/torch_tracing.md).
+
+:data:`STORE_BUILD` records, always, the seconds of the newest store
+build by phase and its key layout's field widths.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+import time
+from typing import Dict, Optional, Sequence, Tuple
 
 from .trace import TRACE, Span, SpanRing  # noqa: F401
 
@@ -93,13 +97,60 @@ class CudaWork:
     each group's slots up to its last valid one (``pat_slots`` sums the
     padded ones); a fused record counts its widest segment's, as
     ``pat_slots`` counts one segment's grid. The throughput simulator
-    charges these (``sim.kernel_charge``)."""
+    charges these (``sim.kernel_charge``). ``rows_back`` counts the kept
+    rows the launches' compactions copied back to the host (the
+    ``collect`` phase), on both backends."""
 
     launches: int = 0
     live_slots: int = 0
+    # kept rows the launches' results brought back from the device
+    rows_back: int = 0
 
     def snapshot(self) -> "CudaWork":
         return dataclasses.replace(self)
+
+
+class PhaseClock:
+    """Charges the seconds since its previous mark (or its start) to the
+    name of each mark, in ``phases``."""
+
+    def __init__(self, phases: Dict[str, float]) -> None:
+        self.phases = phases
+        self._t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        t = time.perf_counter()
+        self.phases[name] = self.phases.get(name, 0.0) + t - self._t
+        self._t = t
+
+
+@dataclasses.dataclass
+class StoreBuild:
+    """The newest store build, by phase, in seconds.
+
+    ``host``: the ``TripleStore`` (``dedup``: the SPO keys, their sort
+    and the distinct rows; ``pos``, ``osp``: each order's keys and
+    sort). ``device``: the ``FederatedStore`` built over it (``spo``,
+    ``pos``, ``osp``: each order's keys and per-shard sort; ``copy``:
+    the shard indexes' copies to the device). ``widths``: the store's
+    key layout, each order's field widths, highest field first."""
+
+    host: Dict[str, float] = dataclasses.field(default_factory=dict)
+    device: Dict[str, float] = dataclasses.field(default_factory=dict)
+    widths: Dict[str, Tuple[int, ...]] = dataclasses.field(
+        default_factory=dict)
+
+    def phases(self, part: str) -> PhaseClock:
+        """A clock recording ``part`` (``"host"`` or ``"device"``) anew;
+        a host build starts a new record."""
+        if part == "host":
+            self.device, self.widths = {}, {}
+        phases: Dict[str, float] = {}
+        setattr(self, part, phases)
+        return PhaseClock(phases)
+
+
+STORE_BUILD = StoreBuild()
 
 
 METRICS_VERSION = "brtpf/v1"

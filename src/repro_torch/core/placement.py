@@ -35,7 +35,7 @@ from typing import Deque, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .store import _ORDERS, _pack
+from .store import _ORDERS, KeyLayout
 
 __all__ = [
     "HeatRecord",
@@ -156,16 +156,17 @@ class Placement:
         return any(self.replicas.values())
 
 
-def dataset_keys(triples_np: np.ndarray) -> Dict[str, np.ndarray]:
-    """Sorted packed keys per index order for a host triple array."""
+def dataset_keys(
+    triples_np: np.ndarray, layout: Optional[KeyLayout] = None
+) -> Dict[str, np.ndarray]:
+    """Sorted packed keys per index order for a host triple array, under
+    ``layout`` (the store's; None: the triples' own, ``KeyLayout.of``).
+    :class:`Placement` boundaries and replica ranges are keys of the same
+    layout."""
     triples_np = np.asarray(triples_np)
-    out: Dict[str, np.ndarray] = {}
-    for name, comp in _ORDERS.items():
-        keys = _pack(
-            triples_np[:, comp[0]], triples_np[:, comp[1]], triples_np[:, comp[2]]
-        )
-        out[name] = np.sort(keys)
-    return out
+    if layout is None:
+        layout = KeyLayout.of(triples_np)
+    return {name: np.sort(layout.pack(triples_np, name)) for name in _ORDERS}
 
 
 def equal_boundaries(keys_sorted: np.ndarray, shards: int) -> np.ndarray:

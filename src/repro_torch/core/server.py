@@ -183,7 +183,7 @@ class BrTPFServer:
             from .placement import HeatLog
             self.federated = FederatedStore.build(
                 store.triples, shards=config.shards,
-                device=config.device)
+                device=config.device, layout=store.layout)
             # placement_policy="heat": record per-range heat from live
             # traffic so repartition() can re-cut shard boundaries
             # (docs/federation.md, "Placement")

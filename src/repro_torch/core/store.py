@@ -6,12 +6,17 @@ and (b) O(1)-ish cardinality estimates. We reproduce that contract with
 three sorted permutations of the dictionary-encoded triple array (SPO,
 POS, OSP) and packed-int64 binary search:
 
-* each triple ``(a, b, c)`` in a given component order is packed into a
-  single int64 key ``a << 42 | b << 21 | c`` (21 bits per component,
-  i.e. up to 2,097,151 distinct terms — far above our workloads);
+* each triple in a given component order is packed into a single int64
+  key by the store's :class:`KeyLayout`, one field per column, the
+  order's first column highest. Where every term id fits 21 bits the
+  fields are the JAX package's ``a << 42 | b << 21 | c``; past that,
+  each column's field is offset by the column's least id and is as
+  wide as its range, so ids up to 2**31 - 1 key exactly while the three
+  ranges fit 63 bits together (the store raises where they do not);
 * a pattern with a bound *prefix* of the chosen order maps to one
   contiguous key range -> two ``searchsorted`` calls give the exact match
-  range *and* the exact cardinality, mirroring HDT;
+  range *and* the exact cardinality, mirroring HDT; a bound constant
+  outside its column's field maps to the empty range;
 * non-prefix bound components (e.g. ``(s, ?, o)``) are resolved by
   scanning the best prefix range with a vectorized mask; the advertised
   cardinality is then an *estimate* (the prefix-range size), which is
@@ -20,15 +25,13 @@ POS, OSP) and packed-int64 binary search:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .fragments import FragmentStore
+from .metrics import STORE_BUILD
 from .rdf import TriplePattern, is_var
-
-_BITS = 21
-_MAX_ID = (1 << _BITS) - 1
 
 # Component orders for the three indexes.
 _ORDERS = {
@@ -37,13 +40,144 @@ _ORDERS = {
     "osp": (2, 0, 1),
 }
 
+# Bits of each field of the narrow layout (the JAX package's key).
+NARROW_BITS = 21
+# Bits a key may take: an int64 without its sign bit.
+KEY_BITS = 63
+# The (lo_key, hi_key) of a prefix no row can have: searchsorted puts
+# both ends at 0, so every range it bounds is empty.
+EMPTY_BOUNDS = (0, -1)
 
-def _pack(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
-    return (
-        a.astype(np.int64) << (2 * _BITS)
-        | b.astype(np.int64) << _BITS
-        | c.astype(np.int64)
-    )
+
+class KeyLayout:
+    """How one store packs a row of term ids into one int64 key.
+
+    Each column (subject, predicate, object) has one field: the id less
+    the column's ``offsets`` entry, in ``widths`` bits. An index order
+    puts its first column's field highest, so an order's keys sort as
+    its rows do. :meth:`of` chooses the layout from the data: three
+    21-bit fields at offset 0 where every id fits 21 bits (the JAX
+    package's ``a << 42 | b << 21 | c``, bit for bit), else per column
+    its least id and the bits its range needs.
+    """
+
+    def __init__(self, offsets: Tuple[int, int, int],
+                 widths: Tuple[int, int, int]) -> None:
+        self.offsets = tuple(int(x) for x in offsets)
+        self.widths = tuple(int(x) for x in widths)
+        if sum(self.widths) > KEY_BITS:
+            raise ValueError(
+                f"key fields of {self.widths} bits (subject, predicate, "
+                f"object) need {sum(self.widths)} bits; an int64 key "
+                f"holds {KEY_BITS}")
+        self._fields: Dict[str, Tuple[Tuple[int, int, int, int], ...]] = {}
+        for name, order in _ORDERS.items():
+            shift = sum(self.widths)
+            fields = []
+            for col in order:
+                shift -= self.widths[col]
+                fields.append((col, self.offsets[col], shift,
+                               self.widths[col]))
+            self._fields[name] = tuple(fields)
+
+    @classmethod
+    def narrow(cls) -> "KeyLayout":
+        return cls((0, 0, 0), (NARROW_BITS,) * 3)
+
+    @classmethod
+    def of(cls, triples: np.ndarray) -> "KeyLayout":
+        """The layout of the non-negative int ``[N, 3]`` ``triples``."""
+        triples = np.asarray(triples).reshape(-1, 3)
+        if triples.shape[0] == 0 \
+                or int(triples.max()) < (1 << NARROW_BITS):
+            return cls.narrow()
+        lows = triples.min(axis=0).astype(np.int64)
+        highs = triples.max(axis=0).astype(np.int64)
+        return cls(tuple(lows), tuple(int(h - lo).bit_length()
+                                      for lo, h in zip(lows, highs)))
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, KeyLayout) and \
+            (self.offsets, self.widths) == (other.offsets, other.widths)
+
+    def __repr__(self) -> str:
+        return f"KeyLayout(offsets={self.offsets}, widths={self.widths})"
+
+    def fields(self, order: str) -> Tuple[Tuple[int, int, int, int], ...]:
+        """``(column, offset, shift, width)`` of each field of ``order``'s
+        key, first (highest) field first."""
+        return self._fields[order]
+
+    def order_widths(self) -> Dict[str, Tuple[int, int, int]]:
+        """Each order's field widths, highest field first."""
+        return {name: tuple(f[3] for f in fields)
+                for name, fields in self._fields.items()}
+
+    def pack(self, rows: np.ndarray, order: str) -> np.ndarray:
+        """int64 keys under ``order`` of the int ``[N, 3]`` ``rows``
+        (subject, predicate, object columns)."""
+        key = np.zeros(rows.shape[0], dtype=np.int64)
+        for col, offset, shift, _width in self._fields[order]:
+            part = rows[:, col].astype(np.int64)
+            if offset:
+                part -= offset
+            part <<= shift
+            key |= part
+        return key
+
+    def unpack(self, keys: np.ndarray, order: str,
+               dtype=np.int32) -> np.ndarray:
+        """The ``[N, 3]`` rows (subject, predicate, object columns) of
+        ``order``'s int64 ``keys``: :meth:`pack` undone."""
+        rows = np.empty((keys.shape[0], 3), dtype=dtype)
+        for col, offset, shift, width in self._fields[order]:
+            value = keys >> shift
+            value &= (1 << width) - 1
+            if offset:
+                value += offset
+            rows[:, col] = value
+        return rows
+
+    def prefix_bounds(self, comps: np.ndarray, order: str, plen: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Inclusive ``(lo_keys, hi_keys)`` of the length-``plen`` bound
+        prefix of each pattern row of ``comps`` (int [K, 3]) under
+        ``order``: the unbound tail's fields run from 0 to their largest
+        value, and a row with a bound constant outside its field gets
+        :data:`EMPTY_BOUNDS`. ``searchsorted`` left / right on the
+        result gives the exact index interval. The single source of the
+        sub-range keys of :meth:`TripleStore.subranges` and the sharded
+        planner (``FederatedStore.plan_windows``)."""
+        comps = np.asarray(comps, dtype=np.int64).reshape(-1, 3)
+        lo = np.zeros(comps.shape[0], dtype=np.int64)
+        hi = np.zeros(comps.shape[0], dtype=np.int64)
+        inside = np.ones(comps.shape[0], dtype=bool)
+        for i, (col, offset, shift, width) in enumerate(self._fields[order]):
+            top = (1 << width) - 1
+            if i < plen:
+                value = comps[:, col] - offset
+                inside &= (value >= 0) & (value <= top)
+                value = np.where(inside, value, 0) << shift
+                lo |= value
+                hi |= value
+            else:
+                hi |= top << shift
+        lo[~inside], hi[~inside] = EMPTY_BOUNDS
+        return lo, hi
+
+    def pattern_bounds(self, tp: TriplePattern, order: str
+                       ) -> Tuple[int, int]:
+        """``(lo_key, hi_key)`` of ``tp``'s bound prefix under ``order``."""
+        comps = tp.as_tuple()
+        plen = 0
+        for col in _ORDERS[order]:
+            if is_var(comps[col]):
+                break
+            plen += 1
+        lo, hi = self.prefix_bounds(
+            np.asarray([[c if not is_var(c) else 0 for c in comps]]),
+            order, plen)
+        return int(lo[0]), int(hi[0])
 
 
 @dataclasses.dataclass
@@ -133,29 +267,6 @@ class CandidateRange:
         return t[:, 0], t[:, 1], t[:, 2]
 
 
-def prefix_interval_keys(comps: np.ndarray, order: Tuple[int, int, int],
-                         plen: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Packed ``(lo_keys, hi_keys)`` of the length-``plen`` bound prefix
-    of each pattern row in ``comps`` (int64 [K, 3]) under ``order``.
-
-    The single source of the sub-range key derivation used by
-    :meth:`TripleStore.subranges`.
-    Unbound tail positions fill with 0 / ``_MAX_ID``; ``searchsorted``
-    left/right on the result gives the exact index interval.
-    """
-    lo_cols, hi_cols = [], []
-    for i in range(3):
-        if i < plen:
-            col = comps[:, order[i]]
-            lo_cols.append(col)
-            hi_cols.append(col)
-        else:
-            lo_cols.append(np.zeros(comps.shape[0], np.int64))
-            hi_cols.append(np.full(comps.shape[0], _MAX_ID, np.int64))
-    return (_pack(lo_cols[0], lo_cols[1], lo_cols[2]),
-            _pack(hi_cols[0], hi_cols[1], hi_cols[2]))
-
-
 def merge_spans(bounds: np.ndarray) -> np.ndarray:
     """Merge per-binding ``(lo, hi)`` intervals into disjoint union spans.
 
@@ -232,22 +343,39 @@ class TripleStore:
     """Sorted-index triple store over ``int32 [N, 3]`` triples."""
 
     def __init__(self, triples: np.ndarray) -> None:
+        clock = STORE_BUILD.phases("host")
         triples = np.asarray(triples, dtype=np.int32).reshape(-1, 3)
-        # Set semantics: an RDF graph is a set of triples.
-        if triples.shape[0] > 0:
-            triples = np.unique(triples, axis=0)
-            if int(triples.max(initial=0)) > _MAX_ID:
-                raise ValueError("term id exceeds 21-bit packing limit")
-            if int(triples.min(initial=0)) < 0:
-                raise ValueError("data triples must not contain variables")
+        if int(triples.min(initial=0)) < 0:
+            raise ValueError("data triples must not contain variables")
+        self.layout = KeyLayout.of(triples)
+        STORE_BUILD.widths = self.layout.order_widths()
+        # Set semantics: an RDF graph is a set of triples. The distinct
+        # rows in SPO key order are np.unique(axis=0)'s rows in its
+        # order, and the SPO index is then the identity. A key holds its
+        # whole row, so rows already sorted and distinct (a loaded
+        # store's) are kept as they are, and the other orders' keys are
+        # distinct: any sort gives their one permutation.
+        keys = self.layout.pack(triples, "spo")
+        if not (keys[1:] > keys[:-1]).all():
+            perm = np.argsort(keys, kind="stable")
+            keys = keys[perm]
+            first = np.ones(keys.shape[0], dtype=bool)
+            first[1:] = keys[1:] != keys[:-1]
+            triples = triples[perm[first]]
+            keys = keys[first]
+            del perm, first
         self.triples = triples
-        self._indexes = {}
+        self._indexes = {"spo": _Index(
+            _ORDERS["spo"], keys,
+            np.arange(triples.shape[0], dtype=np.int32))}
+        clock.mark("dedup")
         for name, order in _ORDERS.items():
-            keys = _pack(
-                triples[:, order[0]], triples[:, order[1]], triples[:, order[2]]
-            )
-            perm = np.argsort(keys, kind="stable").astype(np.int32)
+            if name == "spo":
+                continue
+            keys = self.layout.pack(triples, name)
+            perm = np.argsort(keys).astype(np.int32)
             self._indexes[name] = _Index(order, keys[perm], perm)
+            clock.mark(name)
         # Per-pattern candidate-range memo (ROADMAP "Kernel-path TPF
         # paging"): materializing ``triples[perm[lo:hi]]`` is the
         # expensive part of a range read -- a gather over a range that
@@ -336,21 +464,7 @@ class TripleStore:
         idx = self._indexes[name]
         if plen == 0:
             return name, 0, int(idx.keys.shape[0]), 0
-        comps = tp.as_tuple()
-        vals = [comps[idx.order[i]] for i in range(plen)]
-        padded_lo = vals + [0] * (3 - plen)
-        lo_key = int(
-            _pack(np.int64(padded_lo[0]), np.int64(padded_lo[1]),
-                  np.int64(padded_lo[2]))
-        )
-        padded_hi = vals + [_MAX_ID] * (3 - plen)
-        # Python-int arithmetic: the all-MAX key is int64-max, +1 must not
-        # wrap. searchsorted accepts python ints beyond int64 via 'right'
-        # side on the exact hi key instead.
-        hi_key = int(
-            _pack(np.int64(padded_hi[0]), np.int64(padded_hi[1]),
-                  np.int64(padded_hi[2]))
-        )
+        lo_key, hi_key = self.layout.pattern_bounds(tp, name)
         lo = int(np.searchsorted(idx.keys, lo_key, side="left"))
         hi = int(np.searchsorted(idx.keys, hi_key, side="right"))
         return name, lo, hi, plen
@@ -442,10 +556,9 @@ class TripleStore:
                 # Some instantiation is fully unbound: its sub-range is
                 # the whole store, nothing can be pruned.
                 return None
-            order = self._indexes[name].order
             comps = np.asarray([p.as_tuple() for p in pats],
                                dtype=np.int64)               # [K, 3]
-            lo_keys, hi_keys = prefix_interval_keys(comps, order, plen)
+            lo_keys, hi_keys = self.layout.prefix_bounds(comps, name, plen)
             keys = self._indexes[name].keys
             los = np.searchsorted(keys, lo_keys, side="left")
             his = np.searchsorted(keys, hi_keys, side="right")
@@ -552,8 +665,11 @@ class TripleStore:
         return m[offset : offset + limit], int(m.shape[0])
 
     def contains(self, triple: np.ndarray) -> bool:
-        t = np.asarray(triple, dtype=np.int32)
-        key = int(_pack(t[0:1], t[1:2], t[2:3])[0])
+        lo, hi = self.layout.prefix_bounds(
+            np.asarray(triple, dtype=np.int64).reshape(1, 3), "spo", 3)
+        key = int(lo[0])
+        if key > int(hi[0]):
+            return False
         idx = self._indexes["spo"]
         pos = int(np.searchsorted(idx.keys, key, side="left"))
         return pos < idx.keys.shape[0] and int(idx.keys[pos]) == key

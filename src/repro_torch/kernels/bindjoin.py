@@ -103,19 +103,37 @@ def bindjoin_grouped_plain(triples, valid, slots, base_vec, *, spans=None,
         ok = ok & valid[shard, safe].bool()
     ok = ok.reshape(-1) & ref.tpf_match_ref(cand[:, 0], cand[:, 1],
                                             cand[:, 2], base_vec)
-    pats = [slots[..., i] for i in range(4)]
-    parts = [ref.bindjoin_grouped_ref(cand[lo:hi, 0], cand[lo:hi, 1],
-                                      cand[lo:hi, 2], *pats)
-             for lo, hi in _row_chunks(cand.shape[0], g * mp)]
-    keep, idx, nmatch = (torch.cat(xs) for xs in zip(*parts, strict=True))
-    ok = ok[:, None]
-    nmatch = torch.where(ok, nmatch, 0)
-    idx = torch.where(ok, idx, mp)
+    # Only the rows that pass (inside a span, valid, the base test) are
+    # matched, only by the groups with a valid slot, and only against the
+    # slots up to the last valid one of any group: the rest match
+    # nothing, and get first = mp and no count, as the kernel gives them.
+    r = cand.shape[0]
+    dev = triples.device
+    keep = torch.zeros((r, g), dtype=torch.bool, device=dev)
+    idx = torch.full((r, g), mp, dtype=torch.int32, device=dev)
+    nmatch = torch.zeros((r, g), dtype=torch.int32, device=dev)
+    slot_ok = slots[..., 3] != 0
+    groups = torch.arange(g, device=dev)[slot_ok.any(dim=1)]
+    live_rows = torch.arange(r, device=dev)[ok]
+    if groups.numel() and live_rows.numel():
+        used = int(torch.arange(mp, device=dev)[slot_ok.any(dim=0)][-1]) + 1
+        pats = [slots[groups, :used, i] for i in range(4)]
+        sub = cand[live_rows]
+        parts = [ref.bindjoin_grouped_ref(sub[lo:hi, 0], sub[lo:hi, 1],
+                                          sub[lo:hi, 2], *pats)
+                 for lo, hi in _row_chunks(sub.shape[0],
+                                           groups.numel() * used)]
+        keep_l, idx_l, nmatch_l = (torch.cat(xs)
+                                   for xs in zip(*parts, strict=True))
+        at = (live_rows[:, None], groups[None, :])
+        keep[at] = keep_l
+        idx[at] = torch.where(idx_l == used, mp, idx_l)
+        nmatch[at] = nmatch_l
 
     def cells(x):                                   # (R, G) -> (P, S, G, W)
         return x.reshape(p, s, width, g).permute(0, 1, 3, 2).contiguous()
 
-    mask = cells((keep & ok).to(torch.uint8))
+    mask = cells(keep.to(torch.uint8))
     cnt = nmatch.to(torch.int64).reshape(p, s, width, g).sum(dim=2)
     return mask, cells(idx), cnt, cells(nmatch) if dense else None
 

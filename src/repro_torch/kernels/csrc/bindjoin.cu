@@ -71,7 +71,7 @@
 //   (its resident threads) bound the shapes with one live slot; the
 //   grouped kernel's one segment is set up before its run, so that its
 //   item loop keeps its own shape inside the shared body;
-// * tensor cores do not apply: the work is equality tests on 21-bit term
+// * tensor cores do not apply: the work is equality tests on int32 term
 //   ids and has no product form.
 // Bound on an H100, for each page against its own segment's table: the
 // larger of bytes (13 per row read: the triple and its valid flag; per

@@ -543,6 +543,53 @@ def test_sim_traces_count_the_cuda_launches(cuda_device, monkeypatch,
 
 
 @pytest.mark.cuda
+def test_sharded_store_past_24_bit_ids_on_card_equals_cpu(cuda_device):
+    """Term ids past 2**24 (each column keyed by its own range): four
+    logical shards on the card serve the pages, cnt and has_next of the
+    same store on the CPU, single requests and a heterogeneous batch,
+    bound constants outside a column's range included."""
+    from repro_torch import core
+    from repro_torch.core.store import KeyLayout
+
+    v = core.encode_var
+    rng = np.random.default_rng(24)
+    base = (1 << 24) + 12_345
+    ents = base + rng.choice(1 << 22, 600, replace=False)
+    preds = (1 << 25) + np.arange(6)
+    arr = np.stack([rng.choice(ents, 6000), rng.choice(preds, 6000),
+                    rng.choice(ents, 6000)], axis=1).astype(np.int32)
+    store = core.TripleStore(arr)
+    assert store.layout != KeyLayout.narrow()
+    om = np.stack([rng.choice(ents, 8), rng.choice(ents, 8)],
+                  axis=1).astype(np.int32)
+    om[0, 0] = int(preds[0])                  # outside the subjects
+    reqs = [core.Request(core.TriplePattern(v(0), int(p), v(1)), w, pg)
+            for p in preds[:3] for w in (None, om) for pg in (0, 2)]
+    reqs += [core.Request(core.TriplePattern(int(ents[0]), v(0), v(1))),
+             core.Request(core.TriplePattern(v(0), int(preds[0]) - 1,
+                                             v(1))),
+             core.Request(core.TriplePattern(v(0), v(1), (1 << 31) - 1)),
+             core.Request(core.TriplePattern(v(0), v(1), v(2)), None, 5,
+                          count_only=True)]
+    batch = [core.Request(core.TriplePattern(v(0), int(p), v(1)), om[:k])
+             for k, p in enumerate(preds, start=1)]
+
+    def run(device):
+        srv = core.BrTPFServer(store, core.ServerConfig(
+            selector_backend="sharded", shards=4, shard_window=64,
+            device=device))
+        assert srv.federated.layout == store.layout
+        frags = [srv.handle(r) for r in reqs] + srv.handle_batch(batch)
+        return [(f.data.tobytes(), f.data.shape, f.cnt, f.has_next)
+                for f in frags]
+
+    got = run(cuda_device)
+    assert got == run("cpu")
+    assert sum(shape[0] for _, shape, _, _ in got) > 100
+    assert got[len(reqs) - 3][2] == got[len(reqs) - 2][2] == 0
+
+
+@pytest.mark.cuda
 def test_edge_router_on_card_equals_numpy_app(cuda_device):
     """The port's ASGI app over a 2-replica kernel-backend router on the
     card (``device=None``) returns the fragment bodies of a numpy-backend

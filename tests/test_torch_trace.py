@@ -14,6 +14,8 @@
   phase, not in the selector's last one.
 * The ring counts the spans it drops when full; ``RouteLatency`` takes
   the request span's own two clock readings.
+* ``CudaWork.rows_back`` counts the rows every ``collect`` copied back,
+  on both backends; the store's build record holds every phase.
 * Each span's ``record_function`` range in the profile lies within 50 us
   of its stamps once mapped by one offset read at the profile's start
   (the method of ``bench/devprof.py``); on the card, each ``copy_in``
@@ -346,6 +348,48 @@ def test_threads_lose_no_span_and_share_no_id(monkeypatch):
     assert len(held) == 1000
     assert len(held) + ring.dropped() == threads * each
     assert len({s.id for s in held}) == len(held)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "sharded"])
+def test_rows_back_counts_the_rows_collect_returned(backend, monkeypatch):
+    """``CudaWork.rows_back`` is the kept rows every compaction of the
+    ``collect`` phase copied back, on both backends, fused and not."""
+    import repro_torch.core.federation as tfed
+    import repro_torch.core.kernel_selectors as tks
+    returned = []
+    real = tks.grouped_results
+
+    def counting(*args, **kw):
+        cnts, kept = real(*args, **kw)
+        returned.append(sum(c.shape[0] for seg in kept for c, _ in seg))
+        return cnts, kept
+
+    monkeypatch.setattr(tks, "grouped_results", counting)
+    monkeypatch.setattr(tfed, "grouped_results", counting)
+    server = BrTPFServer(tcore.TripleStore(ARR), config(backend))
+    server.handle_batch(requests())
+    for req in requests(5, seed=11):
+        server.handle(req)
+    work = server.cuda_work()
+    assert work.launches == len(returned)
+    assert work.rows_back == sum(returned) > 0
+
+
+def test_the_build_record_holds_every_phase():
+    from repro_torch.core import metrics
+    BrTPFServer(tcore.TripleStore(ARR), config("sharded"))
+    rec = metrics.STORE_BUILD
+    assert set(rec.host) == {"dedup", "pos", "osp"}
+    assert set(rec.device) == {"spo", "pos", "osp", "copy"}
+    assert rec.widths == {name: (21, 21, 21) for name in ("spo", "pos",
+                                                          "osp")}
+    assert all(v >= 0 for part in (rec.host, rec.device)
+               for v in part.values())
+    # a new store starts a new record: the kernel backend builds no
+    # device store
+    BrTPFServer(tcore.TripleStore(ARR), config("kernel"))
+    assert set(metrics.STORE_BUILD.host) == {"dedup", "pos", "osp"}
+    assert metrics.STORE_BUILD.device == {}
 
 
 def test_route_latency_takes_the_request_spans_readings():
